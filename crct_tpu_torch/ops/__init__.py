@@ -1,0 +1,1 @@
+"""Port of the matching crct_tpu subpackage."""

@@ -1,0 +1,205 @@
+"""Fused multi-head attention forward: a CUDA kernel and its plain version.
+
+``fused_attention`` is the port of ``crct_tpu/ops/attention.py`` (the
+Pallas kernel ``_fwd_kernel``, reached through ``fused_attention`` /
+``_attention``). It computes
+
+    out = (softmax(q k^T / sqrt(D) + mask) * keep / (1 - rate)) v
+
+with fp32 scores, a max-subtracted fp32 softmax and fp32 probabilities
+through P.V, storing the output in the input dtype. For a tensor on the card
+it launches the hand-written kernel ``csrc/attention_fwd.cu`` (no fallback:
+what the kernel does not take raises); for a tensor on the CPU it runs
+:func:`attention_reference`, the same math in plain torch ops.
+
+Dropout reproduces the JAX kernel's murmur3 counter hash bit for bit: with
+the same int seed ``s`` the port equals
+``crct_tpu.ops.attention._attention(q, k, v, mask, [[s]], rate, True)``.
+
+Bound on an H100 at the flagship shapes (B = 240 rows, fp32): the text
+self-attention (H16, D48, 124 x 124) does ~11.3 GFLOP and moves ~366 MB a
+launch, 0.17 ms of fp32 CUDA-core time against 0.11 ms of memory time, so
+operations bound it. The simple kernel uses no tensor cores and no TMA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from collections import Counter
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+MAX_HEAD_DIM = 128
+MAX_KEYS = 1024
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches, keyed by (H, Lq, Lk, D); bumped only where the kernel is
+# launched, never by the plain version
+_COUNT_LOCK = threading.Lock()
+LAUNCHES: Counter = Counter()
+
+
+def launch_count() -> int:
+    with _COUNT_LOCK:
+        return sum(LAUNCHES.values())
+
+
+def reset_launch_count() -> None:
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
+
+
+def _head_block(H: int) -> int:
+    """Heads per JAX grid program (crct_tpu/ops/attention.py::_head_block):
+    it fixes which dropout stream each head draws from."""
+    for hb in (8, 4, 2, 1):
+        if H % hb == 0:
+            return hb
+    return 1
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 ``a`` in [0, 2**32), without overflowing
+    int64: the constant is split into 16-bit halves."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def _uniform_hash(seed: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
+                  i2: torch.Tensor) -> torch.Tensor:
+    """``_uniform_hash`` of the JAX kernel: U[0,1) floats from the uint32
+    murmur3 finalizer of (seed, iota position), written out in int64 and
+    masked to 32 bits. All arguments broadcast; values lie in [0, 2**32)."""
+    h = _mul32(i0, 0x9E3779B9)
+    h = h ^ _mul32(i1, 0x85EBCA6B)
+    h = h ^ _mul32(i2, 0xC2B2AE35)
+    h = (h + _mul32(seed, 2654435761)) & 0xFFFFFFFF
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    bits = ((h >> 9) | 0x3F800000).to(torch.int32)
+    return bits.view(torch.float32) - 1.0
+
+
+def keep_mask(shape: Tuple[int, int, int, int], seed: int, rate: float,
+              device) -> torch.Tensor:
+    """[B,H,Lq,Lk] fp32 dropout multipliers (0 or 1/(1-rate)) of the JAX
+    kernel's grid: program (b, h // HB) draws from seed + prog * 1000003 over
+    the iota [HB, Lq, Lk] with axis 0 = h % HB."""
+    B, H, Lq, Lk = shape
+    hb = _head_block(H)
+    b = torch.arange(B, device=device, dtype=torch.int64).view(B, 1, 1, 1)
+    h = torch.arange(H, device=device, dtype=torch.int64).view(1, H, 1, 1)
+    prog = b * (H // hb) + h // hb
+    prog_seed = ((seed & 0xFFFFFFFF) + _mul32(prog, 1000003)) & 0xFFFFFFFF
+    i1 = torch.arange(Lq, device=device, dtype=torch.int64).view(1, 1, Lq, 1)
+    i2 = torch.arange(Lk, device=device, dtype=torch.int64).view(1, 1, 1, Lk)
+    u = _uniform_hash(prog_seed, h % hb, i1, i2)
+    scale = np.float32(1.0) / np.float32(1.0 - rate)
+    return (u >= float(np.float32(rate))).to(torch.float32) * float(scale)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        additive_mask: Optional[torch.Tensor],
+                        dropout_rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """The kernel's plain version: the same arguments as
+    :func:`fused_attention` and the same math, in plain torch ops."""
+    scale = np.float32(1.0 / math.sqrt(q.shape[-1]))
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = scores * float(scale)
+    if additive_mask is not None:
+        scores = scores + additive_mask.float()
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        probs = probs * keep_mask(tuple(probs.shape), seed, dropout_rate,
+                                  probs.device)
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           additive_mask: Optional[torch.Tensor], dropout_rate: float,
+           seed: int) -> torch.Tensor:
+    """Validate what the kernel takes; return the mask as a contiguous
+    [B,1,Lm,Lk] fp32 tensor on q's device (zeros when None)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, L, D]")
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    if tuple(k.shape) != (B, H, Lk, D) or tuple(v.shape) != (B, H, Lk, D):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"[{B}, {H}, Lk, {D}]")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v must share a dtype of float32 or bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must lie on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
+    if min(B, H, Lq, Lk, D) < 1 or D > MAX_HEAD_DIM or Lk > MAX_KEYS:
+        raise ValueError(f"unsupported shape: D={D} (1..{MAX_HEAD_DIM}), "
+                         f"Lk={Lk} (1..{MAX_KEYS})")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"seed {seed} is not an int32")
+    if additive_mask is None:
+        return torch.zeros((B, 1, 1, Lk), dtype=torch.float32, device=q.device)
+    if additive_mask.dim() != 4 or additive_mask.shape[1] != 1 \
+            or additive_mask.shape[2] not in (1, Lq):
+        raise ValueError(f"mask {tuple(additive_mask.shape)} must broadcast "
+                         f"to [{B}, 1, 1 or {Lq}, {Lk}]")
+    Lm = additive_mask.shape[2]
+    return (additive_mask.to(device=q.device, dtype=torch.float32)
+            .expand(B, 1, Lm, Lk).contiguous())
+
+
+def _launch(q, k, v, mask, dropout_rate: float, seed: int) -> torch.Tensor:
+    from crct_tpu_torch.ops.build import load
+    lib = load("attention_fwd")
+    fn = lib.attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    B, H, Lq, D = q.shape
+    Lk, Lm = k.shape[2], mask.shape[2]
+    out = torch.empty_like(q)
+    rate = np.float32(dropout_rate)
+    keep_scale = np.float32(1.0) / np.float32(1.0 - dropout_rate)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
+                 float(np.float32(1.0 / math.sqrt(D))), float(rate),
+                 float(keep_scale), int(np.int32(seed)), _head_block(H),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
+                           f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
+    with _COUNT_LOCK:
+        LAUNCHES[(H, Lq, Lk, D)] += 1
+    return out
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    additive_mask: Optional[torch.Tensor],
+                    dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Attention core over [B, H, L, D] with an additive mask that broadcasts
+    to [B, 1, 1 or Lq, Lk]. On a CUDA tensor: the kernel; on a CPU tensor:
+    :func:`attention_reference`. ``seed`` (int32) picks the dropout mask."""
+    mask = _check(q, k, v, additive_mask, dropout_rate, seed)
+    if q.is_cuda:
+        return _launch(q, k, v, mask, dropout_rate, seed)
+    if q.device.type != "cpu":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    return attention_reference(q, k, v, mask, dropout_rate, seed)

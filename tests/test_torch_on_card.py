@@ -1,0 +1,124 @@
+"""The port's CUDA kernel on the card, against its plain version.
+
+These tests need a CUDA card and the CUDA toolkit (the kernel is built with
+nvcc at first use); where no card is visible they skip. They import nothing
+of JAX, so they also run on a machine that has only PyTorch; there, skip the
+JAX-bound tests/conftest.py:
+
+    python -m pytest --noconftest tests/test_torch_on_card.py -q
+
+Tolerances: fp32 at 1e-5 (the kernel and the plain version both compute
+fp32 scores and probabilities; only the summation order differs); bf16 at
+2e-2 (one bf16 rounding of the output). chip_smoke.py holds the kernel
+against the plain version at the flagship shapes too.
+"""
+
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from crct_tpu_torch.config import CRCTModelConfig
+from crct_tpu_torch.models import layers
+from crct_tpu_torch.models.crct import CRCTModel
+from crct_tpu_torch.models.layers import init_weights
+from crct_tpu_torch.ops import attention
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest "
+                    "tests/test_torch_on_card.py on a machine with one")
+    return torch.device("cuda")
+
+
+def make_qkv(seed, B, H, Lq, Lk, D, Lm, dtype, device):
+    g = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(g.normal(size=(B, H, L, D)).astype(np.float32))
+               .to(device, dtype) for L in (Lq, Lk, Lk))
+    mask = np.where(g.random((B, 1, Lm, Lk)) < 0.2, -10000.0, 0.0)
+    return q, k, v, torch.from_numpy(mask.astype(np.float32)).to(device)
+
+
+# (B, H, Lq, Lk, D): the flagship's bi-attention at a small batch, one query
+# row, head counts of head blocks 2 and 1, and K/V too large for shared
+# memory (the streamed path)
+SHAPES = [(5, 32, 44, 124, 32), (3, 6, 1, 9, 16), (2, 7, 33, 65, 128),
+          (2, 2, 70, 1000, 128)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_matches_plain_on_card(card, shape, dtype):
+    B, H, Lq, Lk, D = shape
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = make_qkv(8, B, H, Lq, Lk, D, Lq if full else 1,
+                                     dtype, card)
+            before = attention.launch_count()
+            got = attention.fused_attention(q, k, v, mask, rate, 99)
+            assert attention.launch_count() == before + 1
+            want = attention.attention_reference(q, k, v, mask, rate, 99)
+            assert got.dtype == dtype
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_kernel_rejects_what_it_does_not_take_on_card(card):
+    q, k, v, mask = make_qkv(1, 2, 4, 8, 8, 16, 1, torch.float32, card)
+    before = attention.launch_count()
+    for bad in ((q.half(), k.half(), v.half(), mask),
+                (q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask),
+                (q, k, v.cpu(), mask)):
+        with pytest.raises((TypeError, ValueError)):
+            attention.fused_attention(*bad)
+    assert attention.launch_count() == before
+
+
+def test_model_forward_goes_through_the_kernel_on_card(card):
+    """A small CRCTModel on the card: one attention launch per attention
+    block, and the same outputs as with the plain attention."""
+    cfg = CRCTModelConfig(
+        vocab_size=600, hidden_size=64, num_hidden_layers=4,
+        num_attention_heads=4, intermediate_size=128, v_feature_size=32,
+        v_hidden_size=32, v_num_hidden_layers=2, v_num_attention_heads=2,
+        v_intermediate_size=32, bi_hidden_size=32, bi_num_attention_heads=4,
+        v_biattention_id=[0, 1], t_biattention_id=[2, 3],
+        max_position_embeddings=128)
+    model = CRCTModel(cfg, categories=10)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(card).eval()
+    g = np.random.default_rng(0)
+    B, L, R = 6, 16, 6
+    sep = np.zeros((B, 50), np.int64)
+    sep[:, 0] = g.integers(L // 2, L - 1, B)
+    batch = {
+        "tokens": g.integers(0, 600, (B, L)), "segments": g.integers(-1, 5, (B, L)),
+        "loc": g.random((B, L, 4)).astype(np.float32), "sep_indices": sep,
+        "hist_len": np.zeros((B, 1), np.int64),
+        "image_feat": g.random((B, R, 32)).astype(np.float32),
+        "image_loc": g.random((B, R, 4)).astype(np.float32),
+        "image_target": g.integers(0, 10, (B, R)),
+        "image_mask": (g.random((B, R)) < 0.8).astype(np.float32),
+        "R": np.tile(np.float32([5.0, 1, 0.01, 10.0]), (B, 1)),
+    }
+    batch = {k: torch.from_numpy(np.asarray(v)).to(card)
+             for k, v in batch.items()}
+    per_forward = (cfg.num_hidden_layers + cfg.v_num_hidden_layers
+                   + 2 * len(cfg.v_biattention_id))
+    with torch.inference_mode():
+        before = attention.launch_count()
+        got = model(batch)
+        assert attention.launch_count() == before + per_forward
+        with mock.patch.object(layers, "fused_attention",
+                               attention.attention_reference):
+            want = model(batch)
+        assert attention.launch_count() == before + per_forward
+    for name in ("nsp_logits", "reg_output"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   atol=1e-5, rtol=1e-4)
