@@ -7,26 +7,39 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, one line each (any failure exits non-zero):
   1. device  - the card's name and power limit, as nvidia-smi gives them;
-  2. build   - nvcc builds the attention-forward kernel from
-               crct_tpu_torch/csrc/attention_fwd.cu for sm_90a;
-  3. kernel  - the kernel against its plain PyTorch version on the card at
-               the four flagship attention shapes (B = 240 rows): fp32 and
-               bf16, key-only and full masks, dropout 0 and 0.1 with one
-               seed; its time, the plain version's, one
-               scaled_dot_product_attention call's (a yardstick the port
+  2. build   - nvcc builds the attention kernels from
+               crct_tpu_torch/csrc/attention_{fwd,bwd}.cu for sm_90a, both
+               at once, and reports their registers and shared memory;
+  3. kernel  - the forward kernel (K1) against its plain PyTorch version at
+               the four flagship attention shapes (B = 240 rows), and the
+               backward kernel (K2) against its plain version at the same
+               shapes at the train batch (B = 80): fp32 and bf16, key-only
+               and full masks, dropout 0 and 0.1 with one seed, and
+               <out, C> = <v, dv> under dropout; each kernel's time, the
+               plain version's, one PyTorch call's (a yardstick the port
                never calls) and the least time the card could take;
   4. serve   - the flagship PlotQA model (config/vilbert.json, random
                weights from a seed, fp32) behind make_server on the card:
                concurrent /v1/answer requests and one /v1/answers batch over
-               HTTP, 30 kernel launches per model forward, answers and the
+               HTTP, 30 K1 launches per model forward, answers and the
                encoder's hidden states re-computed through the plain
                attention on the card; where one score() spends its time, on
-               the host clock and by kernel under torch.profiler.
+               the host clock and by kernel under torch.profiler;
+  5. train   - the same model trained by run_training at batch 80 in bf16
+               with dropout 0.1 on a synthetic train split: step time, QA
+               pairs/s, losses, exactly 30 K1 and 30 K2 launches a step, peak
+               memory, a torch.profiler split of one step, and a checkpoint
+               restored with -continue to the same parameters and step;
+  6. cross   - one fp32 train step from the same weights with dropout on,
+               through K1/K2 and through the plain forward and backward
+               from the same generator state: loss, every gradient and the
+               parameters after the AdamW update.
 The line before the last holds the kernels' numbers as JSON; the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
 package beside this script, it prints no result and exits non-zero.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -41,6 +54,7 @@ from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 B = 240                       # rows per serve dispatch (resolve_eval_chunk)
+B_TRAIN = 80                  # rows per train step (the flagship -batch_size)
 SEED = 1234
 # attention shapes of the flagship model (config/vilbert.json, 124 text
 # tokens, 44 regions): name -> (H, Lq, Lk, D)
@@ -51,6 +65,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 HBM_BYTES_PER_S = 3.35e12
 N_CONCURRENT = 24             # concurrent /v1/answer requests
 N_BATCH = 8                   # questions in the /v1/answers request
+TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
+                              # negatives) = 960 items: 12 steps of 80
+KERNELS = ("attention_fwd", "attention_bwd")
 
 
 def say(phase, msg):
@@ -134,6 +151,91 @@ def check_kernel(attention, name, shape, failures):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     return row, flops, nbytes
+
+
+def check_bwd_kernel(attention, name, shape, failures):
+    """K2 against its plain version at one flagship shape at the train
+    batch; its timings and bound (fp32, key-only mask, no dropout). The
+    fp32 tolerance is 1e-5 of the larger of 1 and the largest gradient
+    magnitude, bf16's 2e-2 of it."""
+    import torch
+    import torch.nn.functional as F
+    H, Lq, Lk, D = shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    errs = {}
+
+    def inputs(dtype, full):
+        q, k, v, gr = (torch.randn(B_TRAIN, H, L, D, device="cuda",
+                                   generator=g).to(dtype)
+                       for L in (Lq, Lk, Lk, Lq))
+        mask = torch.where(torch.rand(B_TRAIN, 1, Lq if full else 1, Lk,
+                                      device="cuda", generator=g)
+                           < 0.2, -10000.0, 0.0)
+        return q, k, v, gr, mask
+
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for full in (False, True):
+            for rate in (0.0, 0.1):
+                q, k, v, gr, mask = inputs(dtype, full)
+                leaves = [x.requires_grad_() for x in (q, k, v)]
+                out = attention.fused_attention(*leaves, mask, rate, SEED)
+                got = torch.autograd.grad(out, leaves, gr)
+                want = attention.attention_bwd_reference(q, k, v, mask, gr,
+                                                         rate, SEED)
+                torch.cuda.synchronize()
+                err = max((a.float() - w.float()).abs().max().item()
+                          for a, w in zip(got, want))
+                top = max(w.float().abs().max().item() for w in want)
+                case = (f"{name} {str(dtype)[6:]} "
+                        f"{'full' if full else 'key-only'} mask rate {rate}")
+                if not err <= tol * max(1.0, top):
+                    failures.append(f"K2 {case}: max abs err {err} > {tol} "
+                                    f"x max(1, {top})")
+                errs[(dtype, full, rate)] = err
+
+    # out is linear in v: <out, C> = <v, dv> only with the forward's mask
+    q, k, v, gr, mask = inputs(torch.float32, False)
+    v.requires_grad_()
+    out = attention.fused_attention(q, k, v, mask, 0.1, SEED)
+    (dv,) = torch.autograd.grad(out, (v,), gr)
+    lhs = (out.double() * gr.double()).sum().item()
+    rhs = (v.double() * dv.double()).sum().item()
+    if not abs(lhs - rhs) <= 1e-5 * abs(lhs):
+        failures.append(f"K2 {name}: <out,C> {lhs} != <v,dv> {rhs}")
+
+    q, k, v, gr, mask = inputs(torch.float32, False)
+    ms = time_ms(lambda: attention._launch_bwd(q, k, v, mask, gr, 0.0, 0))
+    plain_ms = time_ms(lambda: attention.attention_bwd_reference(
+        q, k, v, mask, gr))
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+    # SDPA's backward alone: forward + backward minus forward
+    library_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
+                                                      gr))
+                  - time_ms(sdpa))
+    flops = 10.0 * B_TRAIN * H * Lq * Lk * D
+    # q, g, dq; k, v, dk, dv; the key-only mask
+    nbytes = 4.0 * (3 * B_TRAIN * H * Lq * D + 4 * B_TRAIN * H * Lk * D
+                    + B_TRAIN * Lk)
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": f"attention_bwd[{name}]",
+        "route": "cuda",
+        "source": "crct_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "crct_tpu/ops/attention.py:96",
+        "max_abs_err": max(e for (d, _, _), e in errs.items()
+                           if d == torch.float32),
+        "max_abs_err_bf16": max(e for (d, _, _), e in errs.items()
+                                if d == torch.bfloat16),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    return row, flops, nbytes, abs(lhs - rhs) / abs(lhs)
 
 
 def post(url, payload):
@@ -428,6 +530,251 @@ def serve(card, attention, failures):
         return launches
 
 
+def step_profile(trainer, batch, cfg, card):
+    """Device time of one train step by kernel group, from torch.profiler,
+    and the busy share of its wall time under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer.run_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"gemm": 0.0, "attention_fwd": 0.0, "attention_bwd": 0.0,
+              "optimizer": 0.0, "other": 0.0}
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kernels.append((ms, e.count, e.key))
+        low = e.key.lower()
+        if "attention_fwd" in low:
+            groups["attention_fwd"] += ms
+        elif "attention_bwd" in low:
+            groups["attention_bwd"] += ms
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "matmul",
+                                    "nvjet", "cublas")):
+            groups["gemm"] += ms
+        elif "multi_tensor" in low or "foreach" in low:
+            groups["optimizer"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(groups.values())
+    if busy <= 0:
+        return "device time: not measured (the profiler recorded none)", {}
+    mm = 3 * B_TRAIN * matmul_flops_per_row(cfg)
+    top = "; ".join(f"{k[:60]} x{n} {ms:.2f} ms"
+                    for ms, n, k in sorted(kernels, reverse=True)[:5])
+    rate = (f"{mm / groups['gemm'] / 1e9:.1f} TFLOP/s"
+            if groups["gemm"] > 0 else "not measured")
+    line = (f"device time of one train step (batch {B_TRAIN}, bf16): busy "
+            f"{busy:.2f} of {wall_ms:.2f} ms wall under the profiler "
+            f"({100 * busy / wall_ms:.1f}%): "
+            + ", ".join(f"{g} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
+                        for g, ms in groups.items())
+            + f"; matrix products ~{mm / 1e12:.2f} TFLOP (3 x the forward's) "
+            f"at {rate}; top kernels: {top} ({card})")
+    return line, dict(groups, busy=busy, wall=wall_ms)
+
+
+def train(card, attention, failures):
+    """Phase 5: the flagship model trained by run_training on the card."""
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.config import CRCTModelConfig, default_params
+    from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    from crct_tpu_torch.train import train_loop
+    from crct_tpu_torch.utils.checkpoint import checkpoint_name
+
+    model_config = os.path.join(HERE, "config", "vilbert.json")
+    cfg = CRCTModelConfig.from_json_file(model_config)
+    per_step = {"text": cfg.num_hidden_layers,
+                "vision": cfg.v_num_hidden_layers,
+                "bi_text_queries": len(cfg.v_biattention_id),
+                "bi_vision_queries": len(cfg.v_biattention_id)}
+    with tempfile.TemporaryDirectory(prefix="crct_train_") as root:
+        t0 = time.perf_counter()
+        data = generate_dataset(os.path.join(root, "data"),
+                                n_images=TRAIN_IMAGES, division=8,
+                                n_questions=4, feat_dim=1024,
+                                splits=("train",), seed=SEED)
+        params = default_params(
+            figure_feat_path=data["figure_feat_path"],
+            qa_parent_dir=data["qa_parent_dir"], dataset_config=data,
+            model_config=model_config, seed=SEED, batch_size=B_TRAIN,
+            num_epochs=1, num_workers=4, no_eval=True, bf16=True,
+            save_path=os.path.join(root, "results"), max_seq_len=124,
+            max_vis_features=44)
+        dataset = ChartQADataset(params, ["train"])
+        say("train", f"synthetic train split of {len(dataset)} items "
+                     f"({TRAIN_IMAGES} figures, negatives included) in "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+        step_ms, launches, metrics = [], [], []
+        real_step = train_loop.Trainer.run_step
+
+        def timed_step(self, batch):
+            torch.cuda.synchronize()
+            k1, k2 = attention.launch_count(), attention.bwd_launch_count()
+            t = time.perf_counter()
+            m = real_step(self, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            launches.append((attention.launch_count() - k1,
+                             attention.bwd_launch_count() - k2))
+            metrics.append(m)
+            return m
+
+        attention.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_loop.Trainer, "run_step", timed_step):
+            trainer = train_loop.run_training(params, dataset, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: (attention.LAUNCHES[shape],
+                         attention.BWD_LAUNCHES[shape])
+                  for name, shape in SHAPES.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        losses = [float(m[0]) for m in metrics]
+        n = len(step_ms)
+        want = sum(per_step.values())
+        if n < 10:
+            failures.append(f"train: {n} steps, want at least 10")
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"train: non-finite losses {losses}")
+        if any(k != (want, want) for k in launches):
+            failures.append(f"train: (K1, K2) launches per step {launches}, "
+                            f"want ({want}, {want})")
+        for name, (k1, k2) in counts.items():
+            if k1 != per_step[name] * n or k2 != per_step[name] * n:
+                failures.append(f"train {name}: {k1} K1 and {k2} K2 "
+                                f"launches in {n} steps, want "
+                                f"{per_step[name]} each a step")
+        median = float(np.median(step_ms[2:])) if n > 2 else float("nan")
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        say("train", f"run_training of the flagship model ({n_params / 1e6:.1f}"
+                     f" M parameters, fp32 masters, bf16 autocast, dropout "
+                     f"{cfg.attention_probs_dropout_prob}) at batch {B_TRAIN}: "
+                     f"{n} steps in {wall:.1f} s wall (model build, data "
+                     f"workers and the epoch checkpoint included); step ms "
+                     f"{', '.join(f'{x:.1f}' for x in step_ms)}; median after "
+                     f"2 warm-up steps {median:.2f} ms = "
+                     f"{B_TRAIN / median * 1e3:.1f} QA pairs/s; loss first "
+                     f"{losses[0]:.5f} last {losses[-1]:.5f}; (K1, K2) "
+                     f"launches per step {sorted(set(launches))}; peak "
+                     f"{peak_gb:.2f} GB allocated ({card})")
+
+        # the epoch checkpoint, restored with -continue
+        path = os.path.join(params["save_path"],
+                            checkpoint_name(0, trainer.step))
+        t0 = time.perf_counter()
+        restored = train_loop.Trainer(
+            dict(params, start_checkpoint=path, **{"continue": True}), None,
+            trainer.iters_per_epoch, device="cuda")
+        load_s = time.perf_counter() - t0
+        live = dict(trainer.model.named_parameters())
+        same = all(torch.equal(p, live[k])
+                   for k, p in restored.model.named_parameters())
+        same_opt = all(torch.equal(t, trainer.optimizer.state[k][slot])
+                       for k, slots in restored.optimizer.state.items()
+                       for slot, t in slots.items() if t is not None)
+        if not (same and same_opt and restored.step == trainer.step
+                and restored.optimizer.count == trainer.optimizer.count
+                and restored.start_epoch == 1):
+            failures.append(f"checkpoint {path}: restored parameters "
+                            f"{'equal' if same else 'differ'}, optimizer "
+                            f"{'equal' if same_opt else 'differs'}, step "
+                            f"{restored.step} vs {trainer.step}, start epoch "
+                            f"{restored.start_epoch}")
+        say("train", f"checkpoint {os.path.basename(path)} "
+                     f"({os.path.getsize(path) / 1e9:.2f} GB) restored with "
+                     f"-continue in {load_s:.1f} s: parameters "
+                     f"{'equal' if same else 'DIFFER'}, optimizer state "
+                     f"{'equal' if same_opt else 'DIFFERS'}, step "
+                     f"{restored.step}, start epoch {restored.start_epoch}")
+        del restored
+        torch.cuda.empty_cache()
+
+        loader = DataLoader(dataset, B_TRAIN, shuffle=False, num_workers=1)
+        batch = next(iter(loader))
+        line, _ = step_profile(trainer, batch, cfg, card)
+        say("train", line)
+        del trainer
+        torch.cuda.empty_cache()
+        return counts, batch, params
+
+
+def cross_check(attention, batch, params, failures):
+    """Phase 6: one fp32 step from the same weights with dropout on, through
+    K1/K2 and through the plain forward and backward: loss within 1e-5
+    relative, every gradient within 1e-4 of its largest magnitude, the
+    parameters after the update within 1e-6."""
+    import torch
+
+    from crct_tpu_torch.models import layers
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.train.optimizer import AdamW
+    from crct_tpu_torch.train.train_loop import device_batch, make_train_step
+
+    db = device_batch(batch, "cuda")
+    pd = dict(params, bf16=False)
+
+    def one_step():
+        model = build_model(pd, device="cuda", train=True)
+        opt = AdamW(list(model.named_parameters()), pd, 12)
+        metrics = make_train_step(model, opt)(
+            db, torch.Generator().manual_seed(SEED))
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+        new = {n: p.detach() for n, p in model.named_parameters()}
+        return float(metrics[0]), grads, new
+
+    attention.reset_launch_count()
+    loss, grads, new = one_step()
+    counts = (attention.launch_count(), attention.bwd_launch_count())
+    with mock.patch.object(layers, "fused_attention",
+                           attention.plain_attention):
+        want_loss, want_grads, want_new = one_step()
+    if (attention.launch_count(), attention.bwd_launch_count()) != counts \
+            or min(counts) < 1:
+        failures.append(f"cross-check: kernel launches {counts} then "
+                        f"{(attention.launch_count(), attention.bwd_launch_count())}")
+    rel = abs(loss - want_loss) / abs(want_loss)
+    if not rel <= 1e-5:
+        failures.append(f"cross-check: loss {loss} vs plain {want_loss}")
+    if set(grads) != set(want_grads):
+        failures.append("cross-check: different parameters got gradients")
+    worst_g, worst_name = 0.0, ""
+    for name, g in grads.items():
+        w = want_grads[name]
+        r = ((g - w).abs().max() / w.abs().max().clamp(min=1e-6)).item()
+        if r > worst_g:
+            worst_g, worst_name = r, name
+    if not worst_g <= 1e-4:
+        failures.append(f"cross-check: gradient of {worst_name} off by "
+                        f"{worst_g} of its largest magnitude")
+    worst_p = max((p - want_new[n]).abs().max().item()
+                  for n, p in new.items())
+    if not worst_p <= 1e-6:
+        failures.append(f"cross-check: parameters after the update differ "
+                        f"by {worst_p}")
+    say("cross", f"one fp32 step at batch {B_TRAIN} with dropout, K1/K2 "
+                 f"({counts[0]} and {counts[1]} launches) against the plain "
+                 f"forward and backward: loss {loss:.6f} vs {want_loss:.6f} "
+                 f"(rel {rel:.2g}, tol 1e-5); worst gradient {worst_name} "
+                 f"off by {worst_g:.2g} of its largest magnitude (tol 1e-4); "
+                 f"parameters after AdamW within {worst_p:.2g} (tol 1e-6)")
+
+
 def main():
     try:
         import torch
@@ -457,11 +804,17 @@ def main():
                   f"{torch.backends.cudnn.allow_tf32})")
 
     t0 = time.perf_counter()
-    build.load("attention_fwd")
-    seconds, log = build.BUILD_LOG.get("attention_fwd", (0.0, "cached"))
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    say("build", f"attention_fwd for sm_90a in {seconds:.1f} s (nvcc), "
-                 f"loaded in {time.perf_counter() - t0:.1f} s; {regs}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
+        list(pool.map(build.build, KERNELS))
+    for kname in KERNELS:
+        build.load(kname)
+        seconds, log = build.BUILD_LOG.get(kname, (0.0, "cached"))
+        use = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+               if "registers" in ln or "smem" in ln]
+        say("build", f"{kname} for sm_90a in {seconds:.1f} s (nvcc); "
+                     f"{use}")
+    say("build", f"both built and loaded in "
+                 f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for kname, shape in SHAPES.items():
@@ -476,9 +829,55 @@ def main():
                       f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
                       f"({card})")
 
+    smem_of = build.load("attention_bwd").attention_bwd_smem
+    smem_of.argtypes = [ctypes.c_int] * 3
+    smem_of.restype = ctypes.c_int
+    say("build", "attention_bwd dynamic shared memory per block: "
+                 + ", ".join(f"{kname} {smem_of(*shape[1:]) / 1024:.1f} KB"
+                             for kname, shape in SHAPES.items()))
+    # resident blocks per SM (fp32, bf16) and the waves of B_TRAIN * H blocks
+    occupancy = build.load("attention_bwd").attention_bwd_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int] * 4
+    occupancy.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = []
+    for kname, shape in SHAPES.items():
+        per_sm = [occupancy(*shape[1:], dtype) for dtype in (0, 1)]
+        if min(per_sm) < 1:
+            failures.append(f"attention_bwd occupancy of {kname}: {per_sm}")
+            continue
+        waves = [B_TRAIN * shape[0] / (n * sms) for n in per_sm]
+        occ.append(f"{kname} {per_sm[0]}/{per_sm[1]} blocks, "
+                   f"{waves[0]:.2f}/{waves[1]:.2f} waves")
+    say("build", f"attention_bwd blocks of 8 warps resident per SM "
+                 f"(fp32/bf16) on {sms} SMs at B = {B_TRAIN}: "
+                 + "; ".join(occ))
+    bwd_rows = []
+    for kname, shape in SHAPES.items():
+        row, flops, nbytes, ident = check_bwd_kernel(attention, kname, shape,
+                                                     failures)
+        bwd_rows.append(row)
+        say("kernel", f"K2 {kname} (B, H, Lq, Lk, D) = {(B_TRAIN, *shape)}: "
+                      f"max abs err fp32 {row['max_abs_err']:.3g} (tol 1e-5 "
+                      f"of max(1, |grad|)), bf16 "
+                      f"{row['max_abs_err_bf16']:.3g} (tol 2e-2 of it); "
+                      f"<out,C> = <v,dv> under dropout to {ident:.2g} "
+                      f"relative; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, sdpa backward "
+                      f"{row['library_ms']:.4f} ms (fwd+bwd minus fwd), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
+                      f"({card})")
+
     launches = serve(card, attention, failures)
+    train_counts, batch, params = train(card, attention, failures)
+    cross_check(attention, batch, params, failures)
     for row, kname in zip(kernels, SHAPES):
         row["launches"] = launches[kname]
+        row["train_launches"] = train_counts[kname][0]
+    for row, kname in zip(bwd_rows, SHAPES):
+        row["launches"] = train_counts[kname][1]
+    kernels += bwd_rows
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

@@ -10,7 +10,9 @@ the caller asks for the CPU.
 
 Ported so far: the serving path (``cli.serve`` -> ``serve.make_server`` ->
 ``QAScorer.score`` -> the eval step -> ``CRCTModel`` forward) with the
-attention-forward kernel.
+attention-forward kernel, and the training path (``cli.train`` ->
+``train_loop.run_training`` -> ``Trainer.run_step`` -> forward, losses,
+backward through the attention-backward kernel, 4-group AdamW).
 """
 
 __version__ = "0.1.0"

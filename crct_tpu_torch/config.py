@@ -199,7 +199,8 @@ def read_command_line(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     parser.add_argument('-mesh_shape', type=str, default='',
                         help='not ported: data parallelism')
     parser.add_argument('-profile', action='store_true',
-                        help='not ported: train-step profiling')
+                        help='cli.train: torch.profiler trace of steps 10-15 '
+                             'under <save_path>/profile')
     parser.add_argument('-fs_steps', type=int, default=2000,
                         help='fast-scorer head training steps')
     parser.add_argument('-fs_lr', type=float, default=1e-3,

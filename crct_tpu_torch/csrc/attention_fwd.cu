@@ -22,60 +22,11 @@
 // every group of rows instead. Left for later: tensor cores (wgmma), TMA
 // loads, several rows per warp and a bf16 staging of K and V.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxD = 128;
-constexpr int kMaxChunks = kMaxD / 32;
-constexpr int kMaxSmem = 232448;  // what one block may use on sm_90
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// crct_tpu/ops/attention.py::_uniform_hash at iota position (i0, i1, i2).
-__device__ __forceinline__ float uniform_hash(uint32_t seed, uint32_t i0,
-                                              uint32_t i1, uint32_t i2) {
-  uint32_t h = i0 * 0x9E3779B9u;
-  h ^= i1 * 0x85EBCA6Bu;
-  h ^= i2 * 0xC2B2AE35u;
-  h += seed * 2654435761u;
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return __uint_as_float((h >> 9) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows [row0, row0 + n) of one head's [L, D] matrix into shared memory.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0, int n,
-                                      int D, int ld) {
-  const T* base = src + (size_t)row0 * D;
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int j = i / D;
-    const int d = i - j * D;
-    dst[j * ld + d] = to_f32(base[i]);
-  }
-}
+using namespace attn;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -105,10 +56,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* oh = out + (size_t)bh * Lq * D;
   const float* mb = mask + (size_t)b * Lm * Lk;
 
-  // dropout stream of the JAX grid program (b, h // hb), iota axis 0 = h % hb
-  const uint32_t prog = (uint32_t)(b * (H / hb) + h / hb);
-  const uint32_t prog_seed = seed + prog * 1000003u;
-  const uint32_t i0 = (uint32_t)(h % hb);
+  const DropoutStream drop(seed, b, h, H, hb);
 
   if (resident) {
     stage(sk, kh, 0, Lk, D, ld);
@@ -139,12 +87,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();
       }
       if (active) {
-        for (int j = lane; j < n; j += 32) {
-          const float* kj = kt + j * ld;
-          float s = 0.f;
-          for (int d = 0; d < D; ++d) s = fmaf(myq[d], kj[d], s);
-          myp[t0 + j] = s * scale + mrow[t0 + j];
-        }
+        for (int j = lane; j < n; j += 32)
+          myp[t0 + j] = dot(myq, kt + j * ld, D) * scale + mrow[t0 + j];
       }
     }
     __syncwarp();
@@ -163,10 +107,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l = warp_sum(l);
       for (int j = lane; j < Lk; j += 32) {
         float p = myp[j] / l;
-        if (rate > 0.f) {
-          const float u = uniform_hash(prog_seed, i0, (uint32_t)r, (uint32_t)j);
-          p = p * (u >= rate ? keep_scale : 0.f);
-        }
+        if (rate > 0.f) p = p * drop.keep(r, j, rate, keep_scale);
         myp[j] = p;
       }
     }

@@ -1,11 +1,14 @@
 """Sharded fig-feature + QA-pair dataset with fixed-shape examples.
 
-The port's copy of ``ChartQADataset`` and ``collate`` from
+The port's copy of ``ChartQADataset``, ``collate`` and ``DataLoader`` from
 ``crct_tpu/data/dataset.py`` (reference CRCT/fig_dataloader.py:13-156):
 `.npy` feature shards are loaded lazily and keyed by
 ``image_id // division``; QA files load from `.npy` or `.json`; the train
 split is length-doubled so the second half yields random-negative examples.
-The multi-worker loader is not ported yet.
+``DataLoader`` shuffles per epoch from a seed, drops the ragged tail and
+builds batches in one producer thread or, with more than one worker, in
+spawned worker processes; the batch order equals the JAX loader's for the
+same seed and epoch.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import json
 import os
 import re
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -146,3 +150,150 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
         else:
             batch[key] = np.stack([np.asarray(it[key]) for it in items])
     return batch
+
+
+# ---------------------------------------------------------------------------
+# process-worker machinery (spawned: never inherits the parent's CUDA state)
+# ---------------------------------------------------------------------------
+
+_WORKER_DS: Optional[ChartQADataset] = None
+_WORKER_ERR: Optional[BaseException] = None
+
+
+def _worker_init(params: Dict[str, Any], splits: List[str]) -> None:
+    global _WORKER_DS, _WORKER_ERR
+    try:
+        _WORKER_DS = ChartQADataset(params, splits, init_split=splits[0])
+    except BaseException as e:   # surface via the first job, don't respawn-loop
+        _WORKER_ERR = e
+
+
+def _worker_build(job) -> Dict[str, Any]:
+    if _WORKER_ERR is not None:
+        raise RuntimeError(f"dataset worker failed to initialize: "
+                           f"{_WORKER_ERR!r}")
+    indices, split, get_all, epoch = job
+    assert _WORKER_DS is not None
+    _WORKER_DS.split = split
+    _WORKER_DS.get_all_answers = get_all
+    _WORKER_DS.epoch = epoch
+    return collate([_WORKER_DS[int(i)] for i in indices])
+
+
+def _picklable(params: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in params.items()
+            if isinstance(v, (str, int, float, bool, list, tuple, dict,
+                              type(None), np.ndarray))}
+
+
+class DataLoader:
+    """Loader with seeded per-epoch shuffling and drop_last (the port of
+    ``crct_tpu/data/dataset.py::DataLoader`` on one card).
+
+    With ``num_workers > 1`` batches are built in that many spawned worker
+    processes (the reference's torch DataLoader worker model,
+    train.py:54-73), else in one background producer thread that overlaps
+    building with the consumer's device time. Batches are byte-identical
+    either way: every example draws from its own index-seeded RNG. A worker
+    pool that fails raises; there is no second path.
+    """
+
+    def __init__(self, dataset: ChartQADataset, batch_size: int, *,
+                 shuffle: bool = True, seed: int = 0, num_workers: int = 8,
+                 drop_last: bool = True,
+                 indices: Optional[Sequence[int]] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.epoch = 0
+        self.indices = indices
+        self._pool = None
+        self._idx_cache: Optional[tuple] = None   # (epoch, indices array)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        # per-example RNG mixes the epoch in so negatives/masking resample
+        # every epoch (the reference's unseeded np.random draws fresh)
+        self.dataset.epoch = epoch
+
+    def _epoch_indices(self) -> np.ndarray:
+        # cached per epoch: len(loader) is read several times per log line
+        if self._idx_cache is not None and self._idx_cache[0] == self.epoch:
+            return self._idx_cache[1]
+        idx = (np.asarray(self.indices, np.int64) if self.indices is not None
+               else np.arange(len(self.dataset), dtype=np.int64))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            idx = rng.permutation(idx)
+        self._idx_cache = (self.epoch, idx)
+        return idx
+
+    def __len__(self) -> int:
+        n = len(self._epoch_indices())
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    # -- process pool -----------------------------------------------------
+    def _ensure_pool(self):
+        if self._pool is None:
+            import multiprocessing as mp
+            ctx = mp.get_context("spawn")
+            splits = list(self.dataset.fig_feats.keys())
+            self._pool = ctx.Pool(
+                self.num_workers, initializer=_worker_init,
+                initargs=(_picklable(self.dataset.params), splits))
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker processes, if any."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _batches(self) -> List[np.ndarray]:
+        idx = self._epoch_indices()
+        return [idx[b * self.batch_size:(b + 1) * self.batch_size]
+                for b in range(len(self))]
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        chunks = self._batches()
+        if self.num_workers > 1:
+            yield from self._iter_process(chunks)
+        else:
+            yield from self._iter_thread(chunks)
+
+    def _iter_process(self, chunks) -> Iterator[Dict[str, Any]]:
+        pool = self._ensure_pool()
+        split = self.dataset.split
+        get_all = self.dataset.get_all_answers
+        window = 2 * self.num_workers
+        pending = []
+        for c in chunks:
+            pending.append(pool.apply_async(
+                _worker_build, ((c, split, get_all, self.epoch),)))
+            while len(pending) > window:
+                yield pending.pop(0).get(timeout=600)
+        for fut in pending:
+            yield fut.get(timeout=600)
+
+    def _iter_thread(self, chunks) -> Iterator[Dict[str, Any]]:
+        # one producer thread: example building holds the GIL, so more
+        # threads only add contention; one still overlaps the device time
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = []
+            for c in chunks:
+                pending.append(pool.submit(
+                    lambda cc: collate([self.dataset[int(i)] for i in cc]), c))
+                while len(pending) > 4:
+                    yield pending.pop(0).result()
+            for fut in pending:
+                yield fut.result()

@@ -1,10 +1,20 @@
-"""CRCT: backbone + NSP head + hybrid regressor, the eval forward.
+"""CRCT: backbone + NSP head + hybrid regressor + losses.
 
-The port of ``crct_tpu/models/crct.py`` with ``train=False``: every
-``CRCTOutputs`` field the eval path fills, the DVQA clip to the nearest legal
-float and the CE-regression branch. The regressor runs on every row and its
-outputs are masked by ``needs_reg`` (fixed shapes, as in the JAX package).
-The training losses arrive with the training slice.
+The port of ``crct_tpu/models/crct.py``. ``self.training`` plays the JAX
+``train`` flag: in eval mode the forward fills every ``CRCTOutputs`` field
+the eval path reads (L1 regression loss, the DVQA clip to the nearest legal
+float); in training mode it applies dropout from the caller's generator,
+takes SmoothL1 (beta 0.5, zeroed where |target| > 1) or, with ``use_l1``,
+L1, and adds the NSP cross-entropy and the combined loss
+``nsp_coeff * nsp + reg_coeff * mean(reg_loss)``. The regressor runs on
+every row and its outputs are masked by ``needs_reg`` (fixed shapes, as in
+the JAX package).
+
+Mixed precision for training: with a bf16 config and fp32 parameters (what
+``build_model(train=True)`` gives) the backbone computes under bf16
+autocast, so AdamW updates fp32 masters, as the JAX package keeps
+``param_dtype`` fp32 under ``-bf16``. Serving casts the parameters instead
+(``set_compute_dtype``). The regressor and the losses stay fp32 either way.
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ import torch
 from torch import nn
 
 from crct_tpu_torch.config import DVQA_FLOATS, CRCTModelConfig
-from crct_tpu_torch.models.layers import init_weights
+from crct_tpu_torch.models.layers import DropoutRNG, init_weights
 from crct_tpu_torch.models.regressor import CERegressor, HybridRegressor
 from crct_tpu_torch.models.vilbert import (PreTrainingHeads,
                                            TwoStreamEncoderModel)
@@ -35,6 +45,8 @@ class CRCTOutputs:
     correct_regs: torch.Tensor      # [B] bool, within 5%
     correct_t_regs: torch.Tensor    # [B] bool, within tolerance margin
     needs_reg: torch.Tensor         # [B] bool
+    nsp_loss: Optional[torch.Tensor] = None   # scalar (training)
+    loss: Optional[torch.Tensor] = None       # scalar combined (training)
 
 
 class CRCTModel(nn.Module):
@@ -42,13 +54,19 @@ class CRCTModel(nn.Module):
 
     def __init__(self, config: CRCTModelConfig, categories: int = 228,
                  dataset: str = "plotqa", ce_reg: bool = False,
-                 binary_answers: bool = False, tol_margin: float = 0.01):
+                 binary_answers: bool = False, tol_margin: float = 0.01,
+                 mask_prob_img: float = 0.0, use_l1: bool = False,
+                 nsp_loss_coeff: float = 1.0, reg_loss_coeff: float = 1.0):
         super().__init__()
         self.config = config
         self.dataset = dataset
         self.ce_reg = ce_reg
         self.tol_margin = tol_margin
-        self.bert = TwoStreamEncoderModel(config, categories, dataset)
+        self.use_l1 = use_l1
+        self.nsp_loss_coeff = nsp_loss_coeff
+        self.reg_loss_coeff = reg_loss_coeff
+        self.bert = TwoStreamEncoderModel(config, categories, dataset,
+                                          mask_prob_img)
         self.cls = PreTrainingHeads(config)
         # reference condition (vilbert.py:1518)
         self.has_regressor = not binary_answers
@@ -68,7 +86,26 @@ class CRCTModel(nn.Module):
         self.cls.to(self.compute_dtype)
         return self
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> CRCTOutputs:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> CRCTOutputs:
+        """``generator`` (a CPU ``torch.Generator``; torch's default one when
+        None) drives every dropout draw of a training forward; in eval mode
+        nothing is drawn."""
+        tokens = batch["tokens"]
+        rng = None
+        if self.training:
+            rng = DropoutRNG(generator or torch.default_generator,
+                             tokens.device)
+        autocast = (self.compute_dtype != torch.float32 and
+                    self.cls.bi_seq_relationship.weight.dtype == torch.float32)
+        with torch.autocast(tokens.device.type, dtype=self.compute_dtype,
+                            enabled=autocast):
+            t_seq, v_seq, nsp_logits = self._backbone(batch, rng)
+        with torch.autocast(tokens.device.type, enabled=False):
+            return self._heads(batch, t_seq[:, 0].float(),
+                               v_seq[:, 0].float(), nsp_logits.float())
+
+    def _backbone(self, batch, rng):
         dtype = self.compute_dtype
         tokens = batch["tokens"].long()
         token_types = batch["segments"].long()
@@ -89,9 +126,13 @@ class CRCTModel(nn.Module):
             tokens, token_types, batch["loc"], attention_mask,
             batch["image_feat"], batch["image_loc"],
             batch["image_target"].long(), batch["image_mask"],
-            batch.get("area"))
-        nsp_logits = self.cls(t_pooled, v_pooled).float()
+            batch.get("area"), rng)
+        return t_seq, v_seq, self.cls(t_pooled, v_pooled, rng)
 
+    def _heads(self, batch, hw_0, hv_0, nsp_logits) -> CRCTOutputs:
+        """Regression head on the CLS states (hw_0 text, hv_0 vision),
+        masked outputs and, in training, the losses; all in fp32."""
+        B = hw_0.shape[0]
         # ---- regression (always computed; masked by needs_reg) ----------
         R = batch["R"].float()                        # [B, 4]
         needs_reg = R[:, 1] > 0
@@ -102,8 +143,6 @@ class CRCTModel(nn.Module):
                                             device=R.device))
         out["correct_t_regs"] = out["correct_regs"]
         if self.has_regressor:
-            hv_0 = v_seq[:, 0].float()
-            hw_0 = t_seq[:, 0].float()
             floats = torch.tensor(DVQA_FLOATS, dtype=torch.float32,
                                   device=R.device)
             if self.ce_reg:
@@ -113,6 +152,14 @@ class CRCTModel(nn.Module):
                 out.update(self._reg_outputs(
                     self.regressor(hv_0, hw_0).float(), R, needs_reg,
                     floats))
+        if self.training and "next_sentence_labels" in batch:
+            labels = batch["next_sentence_labels"].reshape(B).long()
+            logp = torch.log_softmax(nsp_logits, dim=-1)
+            out["nsp_loss"] = -logp.gather(1, labels[:, None]).mean()
+            # combined loss: nsp + mean-over-batch reg loss, zeros of
+            # non-regression rows included (encoder_decorator.py:147-153)
+            out["loss"] = (self.nsp_loss_coeff * out["nsp_loss"]
+                           + self.reg_loss_coeff * out["reg_loss"].mean())
         return CRCTOutputs(nsp_logits=nsp_logits, needs_reg=needs_reg, **out)
 
     @staticmethod
@@ -138,13 +185,21 @@ class CRCTModel(nn.Module):
                      ) -> Dict[str, torch.Tensor]:
         y_scale = torch.where(R[:, 3] == 0, 1.0, R[:, 3])
         reg_targets = R[:, 0] / y_scale
-        if self.dataset == "dvqa":
+        if self.dataset == "dvqa" and not self.training:
             # clip to the nearest legal float (vilbert.py:1619-1625)
             denorm = regression * y_scale
             nearest = floats[(denorm[:, None] - floats[None, :]).abs()
                              .argmin(dim=-1)]
             regression = nearest / y_scale
         l1 = (regression - reg_targets).abs()
+        per_row_loss = l1
+        if self.training and not self.use_l1:
+            # SmoothL1 beta=0.5 (vilbert.py:1528), zeroed for impossible
+            # answers (vilbert.py:1639-1641)
+            per_row_loss = torch.where(l1 < 0.5, 0.5 * l1 * l1 / 0.5,
+                                       l1 - 0.25)
+            per_row_loss = torch.where(reg_targets.abs() > 1.0, 0.0,
+                                       per_row_loss)
         # +-5% relative distance with zero special cases (vilbert.py:1630-1636)
         target_zero = reg_targets == 0
         d5 = l1 / torch.where(target_zero, 1.0, reg_targets.abs())
@@ -157,7 +212,8 @@ class CRCTModel(nn.Module):
         reg_l1 = torch.where(needs_reg, l1, zero)
         return dict(reg_output=torch.where(needs_reg, regression * y_scale,
                                            zero),
-                    reg_loss=reg_l1, reg_l1=reg_l1,
+                    reg_loss=torch.where(needs_reg, per_row_loss, zero),
+                    reg_l1=reg_l1,
                     reg_5_dist=torch.where(needs_reg, d5, zero),
                     correct_regs=correct & needs_reg,
                     correct_t_regs=correct_t & needs_reg)
@@ -165,10 +221,11 @@ class CRCTModel(nn.Module):
 
 def build_model(params: Dict[str, Any],
                 config: Optional[CRCTModelConfig] = None, *,
-                device="cuda") -> CRCTModel:
+                device="cuda", train: bool = False) -> CRCTModel:
     """A CRCTModel from a params dict, its weights initialized from a
-    ``torch.Generator`` seeded by ``params['seed']``, in eval mode on
-    ``device``."""
+    ``torch.Generator`` seeded by ``params['seed']``, on ``device``: in eval
+    mode with the parameters in the compute dtype, or with ``train`` in
+    training mode with fp32 parameters."""
     device = resolve_device(device)
     if config is None:
         if params.get("model_config"):
@@ -183,7 +240,13 @@ def build_model(params: Dict[str, Any],
                       dataset=params.get("dataset", "plotqa"),
                       ce_reg=params.get("CE_REG", False),
                       binary_answers=params.get("binary_answers", False),
-                      tol_margin=params.get("tol_margin", 0.01))
+                      tol_margin=params.get("tol_margin", 0.01),
+                      mask_prob_img=params.get("mask_prob_img", 0.0) or 0.0,
+                      use_l1=params.get("L1", False),
+                      nsp_loss_coeff=params.get("nsp_loss_coeff", 1.0),
+                      reg_loss_coeff=params.get("reg_loss_coeff", 1.0))
     generator = torch.Generator().manual_seed(int(params.get("seed", 0)))
     init_weights(model, generator)
+    if train:
+        return model.to(device).train()
     return model.set_compute_dtype().to(device).eval()

@@ -9,14 +9,19 @@ reference's (``intermediate``, ``output``) pair here, because its two halves
 sit under those names in the state dict.
 
 The attention core is :func:`crct_tpu_torch.ops.attention.fused_attention`:
-the CUDA kernel on the card, its plain version on the CPU. Masks are
-additive (0 / -10000), [B, 1, 1, L] per stream. This slice serves only the
-eval forward, so no dropout is applied.
+the CUDA kernels on the card (forward and backward), their plain versions
+on the CPU. Masks are additive (0 / -10000), [B, 1, 1, L] per stream.
+
+Dropout runs only in training mode and only when the forward is handed a
+:class:`DropoutRNG`: each attention call draws its own int32 seed for the
+kernels' dropout hash (where the JAX layers call ``make_rng("dropout")``),
+and hidden dropout follows the attention output and the FFN
+(crct_tpu/models/layers.py:103,123). The eval path draws nothing.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +50,55 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+
+
+class DropoutRNG:
+    """The randomness of one training forward, all of it drawn from one
+    ``torch.Generator`` on the CPU that the trainer owns: an int32 seed per
+    attention call for the kernels' dropout hash, and hidden-dropout masks
+    from a generator on the activations' device seeded from it once."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.generator = generator
+        self.device = torch.device(device)
+        self._device_generator: Optional[torch.Generator] = None
+
+    def seed(self) -> int:
+        """A fresh seed in [0, 2**31 - 1), the range the JAX layers draw."""
+        return int(torch.randint(0, 2 ** 31 - 1, (),
+                                 generator=self.generator))
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """U[0, 1) fp32 of ``shape`` on the device."""
+        if self._device_generator is None:
+            self._device_generator = torch.Generator(self.device)
+            self._device_generator.manual_seed(self.seed())
+        return torch.rand(tuple(shape), generator=self._device_generator,
+                          device=self.device)
+
+    def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        """flax ``nn.Dropout``: keep with probability 1 - p, scaled up."""
+        if p <= 0.0:
+            return x
+        keep = self.uniform(x.shape) >= p
+        return torch.where(keep, x / (1.0 - p), x.new_zeros(()))
+
+
+def dropout(module: nn.Module, x: torch.Tensor, p: float,
+            rng: Optional[DropoutRNG]) -> torch.Tensor:
+    """Hidden dropout of ``module``: only in training mode with an rng."""
+    if module.training and rng is not None:
+        return rng.dropout(x, p)
+    return x
+
+
+def attention_seed(module: nn.Module, p: float,
+                   rng: Optional[DropoutRNG]) -> tuple:
+    """(rate, seed) of one attention call: a fresh seed in training mode
+    with an rng, else no dropout."""
+    if module.training and rng is not None and p > 0.0:
+        return p, rng.seed()
+    return 0.0, 0
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -86,17 +140,20 @@ class _QKV(nn.Module):
 
 
 class Output(nn.Module):
-    """dense -> LayerNorm(out + residual) (reference BertSelfOutput /
-    BertOutput)."""
+    """dense -> dropout -> LayerNorm(out + residual) (reference
+    BertSelfOutput / BertOutput)."""
 
     def __init__(self, in_size: int, hidden_size: int,
-                 eps: float = LAYER_NORM_EPS):
+                 eps: float = LAYER_NORM_EPS, hidden_dropout: float = 0.0):
         super().__init__()
         self.dense = nn.Linear(in_size, hidden_size)
         self.LayerNorm = nn.LayerNorm(hidden_size, eps=eps)
+        self.hidden_dropout = hidden_dropout
 
-    def forward(self, h: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(h) + residual)
+    def forward(self, h: torch.Tensor, residual: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        h = dropout(self, self.dense(h), self.hidden_dropout, rng)
+        return self.LayerNorm(h + residual)
 
 
 class Intermediate(nn.Module):
@@ -116,20 +173,23 @@ class SelfAttention(nn.Module):
     (reference BertAttention, vilbert.py:361-440)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 eps: float = LAYER_NORM_EPS):
+                 eps: float = LAYER_NORM_EPS, attn_dropout: float = 0.0,
+                 hidden_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_dropout = attn_dropout
         self.self = _QKV(hidden_size)
-        self.output = Output(hidden_size, hidden_size, eps)
+        self.output = Output(hidden_size, hidden_size, eps, hidden_dropout)
 
-    def forward(self, x: torch.Tensor,
-                additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, additive_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         H = self.num_heads
         ctx = fused_attention(split_heads(self.self.query(x), H),
                               split_heads(self.self.key(x), H),
                               split_heads(self.self.value(x), H),
-                              additive_mask)
-        return self.output(merge_heads(ctx), x)
+                              additive_mask,
+                              *attention_seed(self, self.attn_dropout, rng))
+        return self.output(merge_heads(ctx), x, rng)
 
 
 class TransformerLayer(nn.Module):
@@ -137,17 +197,20 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, hidden_act: str,
-                 eps: float = LAYER_NORM_EPS):
+                 eps: float = LAYER_NORM_EPS, attn_dropout: float = 0.0,
+                 hidden_dropout: float = 0.0):
         super().__init__()
-        self.attention = SelfAttention(hidden_size, num_heads, eps)
+        self.attention = SelfAttention(hidden_size, num_heads, eps,
+                                       attn_dropout, hidden_dropout)
         self.intermediate = Intermediate(hidden_size, intermediate_size,
                                          hidden_act)
-        self.output = Output(intermediate_size, hidden_size, eps)
+        self.output = Output(intermediate_size, hidden_size, eps,
+                             hidden_dropout)
 
-    def forward(self, x: torch.Tensor,
-                additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.attention(x, additive_mask)
-        return self.output(self.intermediate(x), x)
+    def forward(self, x: torch.Tensor, additive_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        x = self.attention(x, additive_mask, rng)
+        return self.output(self.intermediate(x), x, rng)
 
 
 class BiAttention(nn.Module):
@@ -157,9 +220,12 @@ class BiAttention(nn.Module):
     (ctx2)."""
 
     def __init__(self, v_hidden_size: int, t_hidden_size: int,
-                 bi_hidden_size: int, num_heads: int):
+                 bi_hidden_size: int, num_heads: int,
+                 v_attn_dropout: float = 0.0, t_attn_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.v_attn_dropout = v_attn_dropout
+        self.t_attn_dropout = t_attn_dropout
         self.query1 = nn.Linear(v_hidden_size, bi_hidden_size)
         self.key1 = nn.Linear(v_hidden_size, bi_hidden_size)
         self.value1 = nn.Linear(v_hidden_size, bi_hidden_size)
@@ -167,14 +233,16 @@ class BiAttention(nn.Module):
         self.key2 = nn.Linear(t_hidden_size, bi_hidden_size)
         self.value2 = nn.Linear(t_hidden_size, bi_hidden_size)
 
-    def forward(self, v_input, v_mask, t_input, t_mask):
+    def forward(self, v_input, v_mask, t_input, t_mask, rng=None):
         H = self.num_heads
         ctx1 = fused_attention(split_heads(self.query2(t_input), H),
                                split_heads(self.key1(v_input), H),
-                               split_heads(self.value1(v_input), H), v_mask)
+                               split_heads(self.value1(v_input), H), v_mask,
+                               *attention_seed(self, self.v_attn_dropout, rng))
         ctx2 = fused_attention(split_heads(self.query1(v_input), H),
                                split_heads(self.key2(t_input), H),
-                               split_heads(self.value2(t_input), H), t_mask)
+                               split_heads(self.value2(t_input), H), t_mask,
+                               *attention_seed(self, self.t_attn_dropout, rng))
         return merge_heads(ctx1), merge_heads(ctx2)
 
 
@@ -203,24 +271,33 @@ class ConnectionLayer(nn.Module):
                  bi_hidden_size: int, bi_num_heads: int,
                  v_intermediate_size: int, t_intermediate_size: int,
                  v_hidden_act: str, t_hidden_act: str,
-                 eps: float = LAYER_NORM_EPS):
+                 eps: float = LAYER_NORM_EPS, v_attn_dropout: float = 0.0,
+                 t_attn_dropout: float = 0.0, v_hidden_dropout: float = 0.0,
+                 t_hidden_dropout: float = 0.0):
         super().__init__()
+        self.v_hidden_dropout = v_hidden_dropout
+        self.t_hidden_dropout = t_hidden_dropout
         self.biattention = BiAttention(v_hidden_size, t_hidden_size,
-                                       bi_hidden_size, bi_num_heads)
+                                       bi_hidden_size, bi_num_heads,
+                                       v_attn_dropout, t_attn_dropout)
         self.biOutput = BiOutput(v_hidden_size, t_hidden_size, bi_hidden_size,
                                  eps)
         self.v_intermediate = Intermediate(v_hidden_size, v_intermediate_size,
                                            v_hidden_act)
-        self.v_output = Output(v_intermediate_size, v_hidden_size, eps)
+        self.v_output = Output(v_intermediate_size, v_hidden_size, eps,
+                               v_hidden_dropout)
         self.t_intermediate = Intermediate(t_hidden_size, t_intermediate_size,
                                            t_hidden_act)
-        self.t_output = Output(t_intermediate_size, t_hidden_size, eps)
+        self.t_output = Output(t_intermediate_size, t_hidden_size, eps,
+                               t_hidden_dropout)
 
-    def forward(self, v_input, v_mask, t_input, t_mask):
-        ctx1, ctx2 = self.biattention(v_input, v_mask, t_input, t_mask)
+    def forward(self, v_input, v_mask, t_input, t_mask, rng=None):
+        ctx1, ctx2 = self.biattention(v_input, v_mask, t_input, t_mask, rng)
         out = self.biOutput
-        v_out = out.LayerNorm1(out.dense1(ctx2) + v_input)
-        t_out = out.LayerNorm2(out.dense2(ctx1) + t_input)
-        v_out = self.v_output(self.v_intermediate(v_out), v_out)
-        t_out = self.t_output(self.t_intermediate(t_out), t_out)
+        h1 = dropout(self, out.dense1(ctx2), self.v_hidden_dropout, rng)
+        v_out = out.LayerNorm1(h1 + v_input)
+        h2 = dropout(self, out.dense2(ctx1), self.t_hidden_dropout, rng)
+        t_out = out.LayerNorm2(h2 + t_input)
+        v_out = self.v_output(self.v_intermediate(v_out), v_out, rng)
+        t_out = self.t_output(self.t_intermediate(t_out), t_out, rng)
         return v_out, t_out

@@ -1,25 +1,34 @@
-"""Fused multi-head attention forward: a CUDA kernel and its plain version.
+"""Fused multi-head attention, forward and backward: CUDA kernels and their
+plain versions.
 
-``fused_attention`` is the port of ``crct_tpu/ops/attention.py`` (the
-Pallas kernel ``_fwd_kernel``, reached through ``fused_attention`` /
-``_attention``). It computes
+``fused_attention`` is the port of ``crct_tpu/ops/attention.py`` (the Pallas
+kernels ``_fwd_kernel`` and ``_bwd_kernel``, reached through
+``fused_attention`` / ``_attention`` and its ``custom_vjp``). It computes
 
     out = (softmax(q k^T / sqrt(D) + mask) * keep / (1 - rate)) v
 
 with fp32 scores, a max-subtracted fp32 softmax and fp32 probabilities
-through P.V, storing the output in the input dtype. For a tensor on the card
-it launches the hand-written kernel ``csrc/attention_fwd.cu`` (no fallback:
-what the kernel does not take raises); for a tensor on the CPU it runs
-:func:`attention_reference`, the same math in plain torch ops.
+through P.V, storing the output in the input dtype. Its gradient recomputes
+the probabilities and regenerates the same keep mask (the
+``torch.autograd.Function`` saves q, k, v, the mask, the int seed and the
+rate, never a second draw) and returns dq, dk and dv by the formulas of
+``_bwd_kernel``. For tensors on the card the forward launches the
+hand-written kernel ``csrc/attention_fwd.cu`` (K1) and the backward
+``csrc/attention_bwd.cu`` (K2), with no fallback: what a kernel does not take
+raises. For tensors on the CPU they run :func:`attention_reference` and
+:func:`attention_bwd_reference`, the same math in plain torch ops.
 
-Dropout reproduces the JAX kernel's murmur3 counter hash bit for bit: with
+Dropout reproduces the JAX kernels' murmur3 counter hash bit for bit: with
 the same int seed ``s`` the port equals
-``crct_tpu.ops.attention._attention(q, k, v, mask, [[s]], rate, True)``.
+``crct_tpu.ops.attention._attention(q, k, v, mask, [[s]], rate, True)`` and
+its VJP.
 
-Bound on an H100 at the flagship shapes (B = 240 rows, fp32): the text
-self-attention (H16, D48, 124 x 124) does ~11.3 GFLOP and moves ~366 MB a
-launch, 0.17 ms of fp32 CUDA-core time against 0.11 ms of memory time, so
-operations bound it. The simple kernel uses no tensor cores and no TMA.
+Bounds on an H100 at the flagship shapes, fp32: the text self-attention
+(H16, D48, 124 x 124) forward at B = 240 rows does ~11.3 GFLOP and moves
+~366 MB a launch, 0.17 ms of fp32 CUDA-core time against 0.11 ms of memory
+time; the backward at B = 80 does 9.4 GFLOP against ~214 MB, 0.14 against
+0.064 ms. Operations bound both. The simple kernels use no tensor cores and
+no TMA.
 """
 
 from __future__ import annotations
@@ -37,20 +46,30 @@ MAX_HEAD_DIM = 128
 MAX_KEYS = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches, keyed by (H, Lq, Lk, D); bumped only where the kernel is
-# launched, never by the plain version
+# kernel launches of K1 (forward) and K2 (backward), keyed by (H, Lq, Lk, D);
+# bumped only where a kernel is launched, never by the plain versions
 _COUNT_LOCK = threading.Lock()
 LAUNCHES: Counter = Counter()
+BWD_LAUNCHES: Counter = Counter()
 
 
 def launch_count() -> int:
+    """Launches of the forward kernel since the last reset."""
     with _COUNT_LOCK:
         return sum(LAUNCHES.values())
 
 
+def bwd_launch_count() -> int:
+    """Launches of the backward kernel since the last reset."""
+    with _COUNT_LOCK:
+        return sum(BWD_LAUNCHES.values())
+
+
 def reset_launch_count() -> None:
+    """Set the counts of both kernels to 0."""
     with _COUNT_LOCK:
         LAUNCHES.clear()
+        BWD_LAUNCHES.clear()
 
 
 def _head_block(H: int) -> int:
@@ -106,24 +125,60 @@ def keep_mask(shape: Tuple[int, int, int, int], seed: int, rate: float,
     return (u >= float(np.float32(rate))).to(torch.float32) * float(scale)
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        additive_mask: Optional[torch.Tensor],
-                        dropout_rate: float = 0.0,
-                        seed: int = 0) -> torch.Tensor:
-    """The kernel's plain version: the same arguments as
-    :func:`fused_attention` and the same math, in plain torch ops."""
-    scale = np.float32(1.0 / math.sqrt(q.shape[-1]))
+def _scale(D: int) -> float:
+    return float(np.float32(1.0 / math.sqrt(D)))
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor,
+           additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B,H,Lq,Lk] fp32 softmax(q k^T * scale + mask)."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    scores = scores * float(scale)
+    scores = scores * _scale(q.shape[-1])
     if additive_mask is not None:
         scores = scores + additive_mask.float()
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
-    probs = e / e.sum(dim=-1, keepdim=True)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        additive_mask: Optional[torch.Tensor],
+                        dropout_rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """The forward kernel's plain version: the same arguments as
+    :func:`fused_attention` and the same math, in plain torch ops."""
+    probs = _probs(q, k, additive_mask)
     if dropout_rate > 0.0:
         probs = probs * keep_mask(tuple(probs.shape), seed, dropout_rate,
                                   probs.device)
     return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            additive_mask: Optional[torch.Tensor],
+                            g: torch.Tensor, dropout_rate: float = 0.0,
+                            seed: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward kernel's plain version (the formulas of the JAX
+    ``_bwd_kernel``): recompute P, regenerate the forward's keep mask from
+    the same seed, and return (dq, dk, dv) for the cotangent ``g`` of the
+    output, in the input dtype."""
+    probs = _probs(q, k, additive_mask)
+    gf = g.float()
+    dpd = torch.matmul(gf, v.float().transpose(-1, -2))
+    if dropout_rate > 0.0:
+        keep = keep_mask(tuple(probs.shape), seed, dropout_rate, probs.device)
+        probs_d, dp = probs * keep, dpd * keep
+    else:
+        probs_d, dp = probs, dpd
+    dv = torch.matmul(probs_d.transpose(-1, -2), gf)
+    ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))
+    scale = _scale(q.shape[-1])
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,26 +218,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             .expand(B, 1, Lm, Lk).contiguous())
 
 
-def _launch(q, k, v, mask, dropout_rate: float, seed: int) -> torch.Tensor:
+def _kernel(name: str, n_ptrs: int):
+    """The C entry of ``csrc/<name>.cu``: ``n_ptrs`` pointers, the dtype
+    and six shape ints, scale, rate and keep scale, seed and head block, and
+    the stream."""
     from crct_tpu_torch.ops.build import load
-    lib = load("attention_fwd")
-    fn = lib.attention_fwd
+    fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
+    return fn
+
+
+def _scalars(q: torch.Tensor, dropout_rate: float, seed: int):
+    """scale, rate, keep scale, seed and head block as the kernels take
+    them (fp32 rounding as in the JAX kernels)."""
+    keep_scale = np.float32(1.0) / np.float32(1.0 - dropout_rate)
+    return (_scale(q.shape[-1]), float(np.float32(dropout_rate)),
+            float(keep_scale), int(np.int32(seed)), _head_block(q.shape[1]))
+
+
+def _launch(q, k, v, mask, dropout_rate: float, seed: int) -> torch.Tensor:
+    fn = _kernel("attention_fwd", 5)
     B, H, Lq, D = q.shape
     Lk, Lm = k.shape[2], mask.shape[2]
     out = torch.empty_like(q)
-    rate = np.float32(dropout_rate)
-    keep_scale = np.float32(1.0) / np.float32(1.0 - dropout_rate)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                  out.data_ptr(), _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
-                 float(np.float32(1.0 / math.sqrt(D))), float(rate),
-                 float(keep_scale), int(np.int32(seed)), _head_block(H),
-                 stream)
+                 *_scalars(q, dropout_rate, seed), stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
@@ -191,15 +257,79 @@ def _launch(q, k, v, mask, dropout_rate: float, seed: int) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(q, k, v, mask, g, dropout_rate: float, seed: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    fn = _kernel("attention_bwd", 9)
+    B, H, Lq, D = q.shape
+    Lk, Lm = k.shape[2], mask.shape[2]
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} must match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    g = g.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((B, H, Lq, 3), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats.data_ptr(), _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
+                 *_scalars(q, dropout_rate, seed), stream)
+    if err != 0:
+        raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
+                           f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
+    with _COUNT_LOCK:
+        BWD_LAUNCHES[(H, Lq, Lk, D)] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The counterpart of ``_attention``'s ``custom_vjp``: the forward
+    saves q, k, v, the mask, the int seed and the rate; the backward
+    regenerates the keep mask from that seed. With ``kernels`` the two
+    directions launch K1 and K2, else they run the plain versions. The mask
+    and the seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, dropout_rate: float, seed: int,
+                kernels: bool):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.dropout_rate, ctx.seed, ctx.kernels = dropout_rate, seed, kernels
+        with torch.autocast(q.device.type, enabled=False):
+            if kernels:
+                return _launch(q, k, v, mask, dropout_rate, seed)
+            return attention_reference(q, k, v, mask, dropout_rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.autocast(q.device.type, enabled=False):
+            if ctx.kernels:
+                grads = _launch_bwd(q, k, v, mask, g, ctx.dropout_rate,
+                                    ctx.seed)
+            else:
+                grads = attention_bwd_reference(q, k, v, mask, g,
+                                                ctx.dropout_rate, ctx.seed)
+        return (*grads, None, None, None, None)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     additive_mask: Optional[torch.Tensor],
                     dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
     """Attention core over [B, H, L, D] with an additive mask that broadcasts
-    to [B, 1, 1 or Lq, Lk]. On a CUDA tensor: the kernel; on a CPU tensor:
-    :func:`attention_reference`. ``seed`` (int32) picks the dropout mask."""
+    to [B, 1, 1 or Lq, Lk], differentiable in q, k and v. On CUDA tensors:
+    the kernels, forward and backward; on CPU tensors: their plain
+    versions. ``seed`` (int32) picks the dropout mask."""
     mask = _check(q, k, v, additive_mask, dropout_rate, seed)
-    if q.is_cuda:
-        return _launch(q, k, v, mask, dropout_rate, seed)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no attention kernel for device {q.device}")
-    return attention_reference(q, k, v, mask, dropout_rate, seed)
+    return _Attention.apply(q, k, v, mask, dropout_rate, seed, q.is_cuda)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    additive_mask: Optional[torch.Tensor],
+                    dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """:func:`fused_attention` through the plain versions on any device,
+    forward and backward: what the kernels are held against on the card.
+    The port's modules never call it."""
+    mask = _check(q, k, v, additive_mask, dropout_rate, seed)
+    return _Attention.apply(q, k, v, mask, dropout_rate, seed, False)

@@ -3,8 +3,8 @@
 Each ``crct_tpu_torch/csrc/<name>.cu`` exposes a plain ``extern "C"``
 entry. At first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library under ``build/kernels/`` at the root of the checkout,
-keyed by a hash of the source, and loaded with
-``ctypes``. Nothing is built when a module is imported: this runs inside the
+keyed by a hash of the source and of every ``csrc/*.cuh`` header it
+includes, and loaded with ``ctypes``. Nothing is built when a module is imported: this runs inside the
 first launch, or ahead of it through :func:`build`.
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -45,11 +46,31 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of ``src`` and of the local headers it includes, transitively,
+    so that an edit to a shared header rebuilds every kernel that uses it."""
+    h = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo.extend(path.parent / inc.decode()
+                    for inc in _INCLUDE.findall(text))
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source is
-    already built; return the library's path."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    headers is already built; return the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(src)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

@@ -145,6 +145,46 @@ def flax_to_state_dict(flax_params: Dict[str, Any],
     return out
 
 
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+         "bias": "bias"}
+_FLAX_LAYER = {path: sub for sub, (path, _) in _LAYER_SUB.items()}
+_FLAX_CONN = {path: sub for sub, (path, _) in _CONN_SUB.items()}
+_FLAX_VEMB = {"new_image_embeddings": "new_image_embeddings",
+              "new_loc_emb": "new_loc_emb", "color_emb": "color_emb",
+              "LayerNorm": "LayerNorm", "areas_emb": "areas_emp"}
+
+
+def torch_key(flax_path: str) -> str:
+    """The port's state-dict key of one JAX parameter, given by its flax
+    path (``bert/encoder/t_layer_0/attention/key/kernel`` ->
+    ``bert.encoder.layer.0.attention.self.key.weight``): the key table of
+    :func:`flax_to_state_dict`, for the backbone and the NSP head."""
+    parts = flax_path.split("/")
+    *mods, leaf = parts
+    if leaf not in _LEAF or len(mods) < 2:
+        raise KeyError(flax_path)
+    head, tail = mods[:2], tuple(mods[2:])
+    if head == ["bert", "embeddings"] and len(tail) == 1:
+        base = f"bert.embeddings.{tail[0]}"
+    elif head == ["bert", "v_embeddings"] and len(tail) == 1 \
+            and tail[0] in _FLAX_VEMB:
+        base = f"bert.v_embeddings.{_FLAX_VEMB[tail[0]]}"
+    elif head == ["bert", "encoder"] and tail:
+        kind, idx = tail[0].rsplit("_", 1)
+        table = _FLAX_CONN if kind == "c_layer" else _FLAX_LAYER
+        prefix = {"t_layer": "layer", "v_layer": "v_layer",
+                  "c_layer": "c_layer"}[kind]
+        base = f"bert.encoder.{prefix}.{idx}.{table[tail[1:]]}"
+    elif head[0] == "bert" and head[1] in ("t_pooler", "v_pooler") \
+            and tail == ("dense",):
+        base = f"bert.{head[1]}.dense"
+    elif mods == ["cls", "bi_seq_relationship"]:
+        base = "cls.bi_seq_relationship"
+    else:
+        raise KeyError(flax_path)
+    return f"{base}.{_LEAF[leaf]}"
+
+
 def strip_reference_keys(state_dict: Dict[str, Any]) -> Dict[str, Any]:
     """Reference state-dict keys -> the port's: the ``bert_pretrained.``
     prefix stripped, old TF-era ``gamma``/``beta`` renamed, and the keys of

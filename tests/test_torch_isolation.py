@@ -76,3 +76,13 @@ def test_cli_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="no card"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x"])
 
+
+
+def test_train_entry_points_default_to_the_card(no_card, tmp_path):
+    from crct_tpu_torch.cli.train import main
+    from crct_tpu_torch.config import default_params
+    from crct_tpu_torch.train.train_loop import Trainer
+    with pytest.raises(RuntimeError, match="no card"):
+        main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval"])
+    with pytest.raises(RuntimeError, match="no card"):
+        Trainer(default_params(save_path=str(tmp_path)), None, 1)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 These tests need a CUDA card and the CUDA toolkit (the kernel is built with
 nvcc at first use); where no card is visible they skip. They import nothing
@@ -7,10 +7,11 @@ JAX-bound tests/conftest.py:
 
     python -m pytest --noconftest tests/test_torch_on_card.py -q
 
-Tolerances: fp32 at 1e-5 (the kernel and the plain version both compute
-fp32 scores and probabilities; only the summation order differs); bf16 at
-2e-2 (one bf16 rounding of the output). chip_smoke.py holds the kernel
-against the plain version at the flagship shapes too.
+Tolerances: fp32 at 1e-5 (the kernels and the plain versions both compute
+fp32 scores, probabilities and sums; only the summation order differs), of
+the largest gradient magnitude for the backward; bf16 at 2e-2 (one bf16
+rounding of each output). chip_smoke.py holds the kernels against the plain
+versions at the flagship shapes too.
 """
 
 from unittest import mock
@@ -45,10 +46,11 @@ def make_qkv(seed, B, H, Lq, Lk, D, Lm, dtype, device):
 
 
 # (B, H, Lq, Lk, D): the flagship's bi-attention at a small batch, one query
-# row, head counts of head blocks 2 and 1, and K/V too large for shared
-# memory (the streamed path)
+# row, head counts of head blocks 2 and 1, K/V too large for shared memory
+# (the streamed path of both kernels) and Q/G too large (the streamed second
+# phase of the backward kernel)
 SHAPES = [(5, 32, 44, 124, 32), (3, 6, 1, 9, 16), (2, 7, 33, 65, 128),
-          (2, 2, 70, 1000, 128)]
+          (2, 2, 70, 1000, 128), (1, 2, 1100, 40, 128)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -69,6 +71,46 @@ def test_kernel_matches_plain_on_card(card, shape, dtype):
                                        atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_kernel_matches_plain_on_card(card, shape, dtype):
+    """K2 through the autograd Function against attention_bwd_reference:
+    one launch per backward, and dq, dk, dv within the tolerance."""
+    B, H, Lq, Lk, D = shape
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = make_qkv(9, B, H, Lq, Lk, D, Lq if full else 1,
+                                     dtype, card)
+            g = torch.randn(q.shape, device=card,
+                            generator=torch.Generator(card).manual_seed(3)
+                            ).to(dtype)
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            out = attention.fused_attention(q, k, v, mask, rate, -7)
+            before = attention.bwd_launch_count()
+            got = torch.autograd.grad(out, (q, k, v), g)
+            assert attention.bwd_launch_count() == before + 1
+            want = attention.attention_bwd_reference(q, k, v, mask, g, rate,
+                                                     -7)
+            for a, w in zip(got, want):
+                assert a.dtype == dtype
+                tol = TOL[dtype] * max(1.0, w.float().abs().max().item())
+                torch.testing.assert_close(a.float(), w.float(), atol=tol,
+                                           rtol=0)
+
+
+def test_backward_regenerates_the_forward_mask_on_card(card):
+    """<out, C> = <v, dv>: out is linear in v, so the two agree only if K2
+    drew the keep mask K1 drew."""
+    q, k, v, mask = make_qkv(4, 6, 16, 124, 124, 48, 1, torch.float32, card)
+    v.requires_grad_()
+    out = attention.fused_attention(q, k, v, mask, 0.1, 12345)
+    c = torch.randn_like(out)
+    (dv,) = torch.autograd.grad(out, (v,), c)
+    torch.testing.assert_close((out * c).sum().double(),
+                               (v * dv).sum().double(), rtol=1e-5, atol=1e-3)
+
+
 def test_kernel_rejects_what_it_does_not_take_on_card(card):
     q, k, v, mask = make_qkv(1, 2, 4, 8, 8, 16, 1, torch.float32, card)
     before = attention.launch_count()
@@ -80,19 +122,17 @@ def test_kernel_rejects_what_it_does_not_take_on_card(card):
     assert attention.launch_count() == before
 
 
-def test_model_forward_goes_through_the_kernel_on_card(card):
-    """A small CRCTModel on the card: one attention launch per attention
-    block, and the same outputs as with the plain attention."""
-    cfg = CRCTModelConfig(
+def small_config(**kw):
+    return CRCTModelConfig(
         vocab_size=600, hidden_size=64, num_hidden_layers=4,
         num_attention_heads=4, intermediate_size=128, v_feature_size=32,
         v_hidden_size=32, v_num_hidden_layers=2, v_num_attention_heads=2,
         v_intermediate_size=32, bi_hidden_size=32, bi_num_attention_heads=4,
         v_biattention_id=[0, 1], t_biattention_id=[2, 3],
-        max_position_embeddings=128)
-    model = CRCTModel(cfg, categories=10)
-    init_weights(model, torch.Generator().manual_seed(0))
-    model = model.to(card).eval()
+        max_position_embeddings=128, **kw)
+
+
+def small_batch(card):
     g = np.random.default_rng(0)
     B, L, R = 6, 16, 6
     sep = np.zeros((B, 50), np.int64)
@@ -106,9 +146,20 @@ def test_model_forward_goes_through_the_kernel_on_card(card):
         "image_target": g.integers(0, 10, (B, R)),
         "image_mask": (g.random((B, R)) < 0.8).astype(np.float32),
         "R": np.tile(np.float32([5.0, 1, 0.01, 10.0]), (B, 1)),
+        "next_sentence_labels": g.integers(0, 2, (B,)),
     }
-    batch = {k: torch.from_numpy(np.asarray(v)).to(card)
-             for k, v in batch.items()}
+    return {k: torch.from_numpy(np.asarray(v)).to(card)
+            for k, v in batch.items()}
+
+
+def test_model_forward_goes_through_the_kernel_on_card(card):
+    """A small CRCTModel on the card: one attention launch per attention
+    block, and the same outputs as with the plain attention."""
+    cfg = small_config()
+    model = CRCTModel(cfg, categories=10)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(card).eval()
+    batch = small_batch(card)
     per_forward = (cfg.num_hidden_layers + cfg.v_num_hidden_layers
                    + 2 * len(cfg.v_biattention_id))
     with torch.inference_mode():
@@ -122,3 +173,42 @@ def test_model_forward_goes_through_the_kernel_on_card(card):
     for name in ("nsp_logits", "reg_output"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    atol=1e-5, rtol=1e-4)
+
+
+def test_model_train_step_goes_through_both_kernels_on_card(card):
+    """One training forward and backward of a small CRCTModel with dropout
+    on: one K1 and one K2 launch per attention block, and the loss and
+    every gradient as through the plain versions from the same generator
+    state (fp32: loss within 1e-5 relative, each gradient within 1e-4 of
+    its largest magnitude)."""
+    cfg = small_config()
+    model = CRCTModel(cfg, categories=10)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(card).train()
+    batch = small_batch(card)
+    per_forward = (cfg.num_hidden_layers + cfg.v_num_hidden_layers
+                   + 2 * len(cfg.v_biattention_id))
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        out = model(batch, torch.Generator().manual_seed(5))
+        out.loss.backward()
+        return out.loss.item(), {n: p.grad.clone() for n, p in
+                                 model.named_parameters()
+                                 if p.grad is not None}
+
+    attention.reset_launch_count()
+    loss, grads = loss_and_grads()
+    assert attention.launch_count() == per_forward
+    assert attention.bwd_launch_count() == per_forward
+    with mock.patch.object(layers, "fused_attention",
+                           attention.plain_attention):
+        want_loss, want = loss_and_grads()
+    assert attention.launch_count() == per_forward
+    assert attention.bwd_launch_count() == per_forward
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        tol = 1e-4 * max(want[name].abs().max().item(), 1e-6)
+        torch.testing.assert_close(g, want[name], atol=tol, rtol=0,
+                                   msg=name)
