@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, one line each (any failure exits non-zero):
   1. device  - the card's name and power limit, as nvidia-smi gives them;
-  2. build   - nvcc builds the attention kernels from
-               crct_tpu_torch/csrc/attention_{fwd,bwd}.cu for sm_90a, both
+  2. build   - nvcc builds the kernels from crct_tpu_torch/csrc/
+               attention_{fwd,bwd}.cu and roi_align_bwd.cu for sm_90a, all
                at once, and reports their registers and shared memory;
   3. kernel  - the forward kernel (K1) against its plain PyTorch version at
                the four flagship attention shapes (B = 240 rows), and the
@@ -33,7 +33,18 @@ Phases, one line each (any failure exits non-zero):
   6. cross   - one fp32 train step from the same weights with dropout on,
                through K1/K2 and through the plain forward and backward
                from the same generator state: loss, every gradient and the
-               parameters after the AdamW update.
+               parameters after the AdamW update;
+  7. detector - the PlotQA Mask R-CNN R50-FPN (25 classes, random weights
+               from a seed, fp32) trained by DetectorTrainer at batch 2 on
+               the 1344 x 1344 canvas, fed by detector_batch_iterator over
+               bar charts drawn with numpy, with the RoIAlign backward on
+               the kernel K3 (the [kernel] phase holds K3 against its plain
+               version, the einsum backward and grid_sampler_2d_backward at
+               the box and mask shapes): 2 warm-up and 10 timed steps with
+               exactly 4 K3 launches a step, a torch.profiler split of one
+               step, one fp32 step through K3, the einsum backward and K3's
+               plain version from the same weights and generator state,
+               one --test inference and a checkpoint round trip.
 The line before the last holds the kernels' numbers as JSON; the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
 package beside this script, it prints no result and exits non-zero.
@@ -67,7 +78,19 @@ N_CONCURRENT = 24             # concurrent /v1/answer requests
 N_BATCH = 8                   # questions in the /v1/answers request
 TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
-KERNELS = ("attention_fwd", "attention_bwd")
+KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
+# the detector: the PlotQA Mask R-CNN R50-FPN of crct_tpu.cli.detector_train
+# (1344 canvas, batch 2, 256 sampled rois an image, 64 of them to the mask
+# branch); 25 classes as the JAX package's production detector bench
+CANVAS = 1344
+DET_BATCH = 2
+DET_CLASSES = 25
+DET_STEPS = 12                # 2 warm-up + 10 timed
+DET_IMAGES = 8
+C_FPN = 256
+ROI_STRIDES = (4, 8, 16, 32)
+# RoIAlign backward calls of a train step: name -> (P, rois per image)
+ROI_SHAPES = {"box": (7, 256), "mask": (14, 64)}
 
 
 def say(phase, msg):
@@ -775,6 +798,536 @@ def cross_check(attention, batch, params, failures):
                  f"parameters after AdamW within {worst_p:.2g} (tol 1e-6)")
 
 
+def chart_boxes(n, rng):
+    """[n, 4] boxes on the canvas drawn like chart elements: wide titles and
+    labels, tall thin bars, tiny tick labels and whole-figure boxes, so that
+    every FPN level P2-P5 takes rois."""
+    import numpy as np
+    kind = np.arange(n) % 4
+    w = np.select([kind == 0, kind == 1, kind == 2],
+                  [rng.uniform(300, 900, n), rng.uniform(12, 120, n),
+                   rng.uniform(6, 60, n)], rng.uniform(500, CANVAS, n))
+    h = np.select([kind == 0, kind == 1, kind == 2],
+                  [rng.uniform(20, 50, n), rng.uniform(100, 1100, n),
+                   rng.uniform(6, 24, n)], rng.uniform(500, CANVAS, n))
+    x0 = rng.uniform(0, 1, n) * (CANVAS - w)
+    y0 = rng.uniform(0, 1, n) * (CANVAS - h)
+    return np.stack([x0, y0, x0 + w, y0 + h], 1).astype(np.float32)
+
+
+def grid_sampler_call(shapes, geo, g, P, S=2):
+    """One aten.grid_sampler_2d_backward per level computing the same
+    gradient: the level's sample points (of the forward's geometry ``geo``)
+    as an align_corners grid with border padding (which clamps as the
+    RoIAlign sampler does), fed g / S^2 spread over the S x S samples.
+    Returns a function giving [H, W, C] fp32 gradients per level."""
+    import torch
+    C = g.shape[-1]
+    calls = []
+    for lvl, (H, W) in enumerate(shapes):
+        on = (geo["lvl"] == lvl).nonzero().squeeze(1)
+        n, PS = on.numel(), P * S
+        if n == 0:
+            continue
+        # the clamped sample coordinates are lo + w_hi, exactly
+        ys = geo["y0"][on].float() + geo["wy1"][on]
+        xs = geo["x0"][on].float() + geo["wx1"][on]
+        grid = torch.stack([(xs / (W - 1) * 2 - 1)[:, None, :].expand(n, PS,
+                                                                      PS),
+                            (ys / (H - 1) * 2 - 1)[:, :, None].expand(n, PS,
+                                                                      PS)],
+                           -1).reshape(1, n * PS, PS, 2).contiguous()
+        go = (g[on].float() / (S * S)).repeat_interleave(S, 1) \
+            .repeat_interleave(S, 2)
+        go = go.permute(3, 0, 1, 2).reshape(1, C, n * PS, PS).contiguous()
+        calls.append((lvl, go, torch.zeros(1, C, H, W, device=g.device),
+                      grid))
+
+    def run():
+        out = [torch.zeros(H, W, C, device=g.device) for H, W in shapes]
+        for lvl, go, inp, grid in calls:
+            gi = torch.ops.aten.grid_sampler_2d_backward(
+                go, inp, grid, 0, 1, True, [True, False])[0]
+            out[lvl] = gi[0].permute(1, 2, 0)
+        return out
+
+    def timed():
+        for _, go, inp, grid in calls:
+            torch.ops.aten.grid_sampler_2d_backward(go, inp, grid, 0, 1,
+                                                    True, [True, False])
+    return run, timed
+
+
+def check_roi_kernel(roi_align, rk, name, card, failures):
+    """K3 against its plain version and the einsum backward at one flagship
+    RoIAlign shape (the 1344 pyramid, C = 256), fp32 and bf16, all three on
+    the geometry the forward hands over; its timings, the grid sampler's
+    and the bound. fp32 tolerance 2e-5 of max(1, |grad|) (fp32 atomics
+    reorder the sums); bf16 element by element, 2^-7 of |want| + 1e-3
+    (both sum in fp32 from the same bf16 g and round once: about one bf16
+    ulp apart at most)."""
+    import numpy as np
+    import torch
+    P, N = ROI_SHAPES[name]
+    S = 2
+    rng = np.random.default_rng(SEED + P)
+    shapes = [(CANVAS // s, CANVAS // s) for s in ROI_STRIDES]
+    boxes = torch.from_numpy(chart_boxes(N, rng)).cuda()
+    cfg = (ROI_STRIDES, P, S, 4, 224, 2, 5)
+    geo = roi_align.mlra_geometry(shapes, boxes, *cfg)
+    hit = sorted(set(geo["lvl"].tolist()))
+    if hit != [0, 1, 2, 3]:
+        failures.append(f"K3 {name}: boxes hit levels {hit}, want all four")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(rng.normal(size=(N, P, P, C_FPN))
+                             .astype(np.float32)).cuda().to(dtype)
+        before = rk.launch_count()
+        got = rk.mlra_backward_kernel(g, geo, shapes, dtype, S)
+        want = rk.mlra_backward_reference(g, geo, shapes, dtype, S)
+        torch.cuda.synchronize()
+        if rk.launch_count() != before + 1:
+            failures.append(f"K3 {name}: {rk.launch_count() - before} "
+                            f"launches for one call")
+        err = max((a.float() - w.float()).abs().max().item()
+                  for a, w in zip(got, want))
+        if dtype == torch.float32:
+            top = max(w.abs().max().item() for w in want)
+            ok, limit = err <= 2e-5 * max(1.0, top), f"2e-5 x max(1, {top})"
+        else:
+            # the worst element's error over its own limit
+            ratio = max(((a.float() - w.float()).abs()
+                         / (2 ** -7 * w.float().abs() + 1e-3)).max().item()
+                        for a, w in zip(got, want))
+            ok, limit = ratio <= 1.0, f"2^-7 |want| + 1e-3 ({ratio:.3g} of it)"
+        if not (ok and all(a.dtype == dtype for a in got)):
+            failures.append(f"K3 {name} {str(dtype)[6:]}: max abs err {err} "
+                            f"beyond {limit}")
+        errs[dtype] = err
+        if dtype == torch.float32:
+            einsum = roi_align._mlra_backward(g, geo, shapes, dtype, S)
+            err_e = max((a - w).abs().max().item()
+                        for a, w in zip(einsum, want))
+            if not err_e <= 2e-5 * max(1.0, top):
+                failures.append(f"K3 {name}: einsum backward off its plain "
+                                f"version by {err_e}")
+            run_lib, timed_lib = grid_sampler_call(shapes, geo, g, P, S)
+            err_l = max((a - w).abs().max().item()
+                        for a, w in zip(run_lib(), want))
+            g32 = g
+    g = g32
+    f32 = torch.float32
+    ms = time_ms(lambda: rk.mlra_backward_kernel(g, geo, shapes, f32, S))
+    plain_ms = time_ms(lambda: rk.mlra_backward_reference(g, geo, shapes,
+                                                          f32, S))
+    einsum_ms = time_ms(lambda: roi_align._mlra_backward(g, geo, shapes, f32,
+                                                         S), iters=5)
+    # the launch alone on prepared inputs, the pyramid's zeroing included:
+    # the kernel's time ("ms"); the wrapper adds the packing of the
+    # geometry (a few small torch ops) and the split into levels
+    idx = torch.stack([geo["y0"], geo["y1i"], geo["x0"], geo["x1i"]],
+                      1).to(torch.int32).contiguous()
+    wts = torch.stack([geo["wy0"], geo["wy1"], geo["wx0"], geo["wx1"]],
+                      1).contiguous()
+    roi = torch.stack([geo["box_off"], geo["box_W"].long()],
+                      1).to(torch.int32).contiguous()
+    rows = sum(h * w for h, w in shapes)
+    flat = torch.empty(rows, C_FPN, device="cuda")
+    fn = rk._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        flat.zero_()
+        fn(g.data_ptr(), idx.data_ptr(), wts.data_ptr(), roi.data_ptr(),
+           flat.data_ptr(), 0, N, P, S, C_FPN, stream)
+    kernel_ms = time_ms(bare)
+    # tolerance for the yardstick: the grid's round trip through [-1, 1]
+    # moves each sample by ~1e-7 of its coordinate
+    lib_ok = err_l <= 1e-4 * max(1.0, top)
+    library_ms = time_ms(timed_lib) if lib_ok else None
+    # 2 FLOP (multiply, add) for each of the 4 corners of each sample and
+    # channel; bytes: g and the geometry read once, the fp32 pyramid
+    # gradient written once
+    flops = 2.0 * N * (P * S) ** 2 * 4 * C_FPN
+    nbytes = (4.0 * N * P * P * C_FPN + 4.0 * (2 * 4 * N * P * S + 2 * N)
+              + 4.0 * rows * C_FPN)
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": f"roi_align_bwd[{name}]",
+        "route": "cuda",
+        "source": "crct_tpu_torch/csrc/roi_align_bwd.cu",
+        "replaces": "crct_tpu/ops/roi_align_pallas.py:61",
+        "max_abs_err": errs[torch.float32],
+        "max_abs_err_bf16": errs[torch.bfloat16],
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "einsum_ms": einsum_ms, "wrapper_ms": ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    lib = (f"grid_sampler_2d_backward x{len(hit)} levels {library_ms:.4f} ms"
+           f" (equals the plain version to {err_l:.3g}, tol 1e-4 of "
+           f"max(1, {top:.3g}))" if lib_ok else
+           f"grid_sampler_2d_backward not timed: off the plain version by "
+           f"{err_l:.3g} > 1e-4 of max(1, {top:.3g})")
+    say("kernel", f"K3 {name} (N, P, C) = ({N}, {P}, {C_FPN}) on the "
+                  f"{CANVAS}^2 pyramid, levels hit {hit}: max abs err fp32 "
+                  f"{errs[torch.float32]:.3g} (tol 2e-5 of max(1, |grad| = "
+                  f"{top:.3g})), bf16 {errs[torch.bfloat16]:.3g} (element "
+                  f"by element {ratio:.3g} of 2^-7 |want| + 1e-3), einsum "
+                  f"backward within {err_e:.3g}; launch "
+                  f"alone (zeroing included) {kernel_ms:.4f} ms, wrapper "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, einsum "
+                  f"{einsum_ms:.4f} ms, {lib}; bound {row['bound_ms']:.4f} ms"
+                  f" ({row['bound_by']}: {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB) ({card})")
+    return row
+
+
+def draw_chart(rng, canvas):
+    """One bar chart in CocoDataset.__getitem__'s layout: the normalized
+    [canvas, canvas, 3] image, up to 100 boxes (title, axis labels, axes,
+    bars, tick labels, legend), their classes among 25, and 28 x 28 mask
+    targets of ones (an axis-aligned element fills its box). Sizes are
+    those of a 1344 canvas, scaled to ``canvas``."""
+    import numpy as np
+
+    from crct_tpu_torch.detector.coco import PIXEL_MEAN, PIXEL_STD
+    u = canvas / 1344
+    img = np.full((canvas, canvas, 3), 255.0, np.float32)
+    boxes, classes = [], []
+
+    def px(lo, hi):
+        return rng.uniform(lo, hi) * u
+
+    def add(x0, y0, x1, y1, cls, color):
+        img[int(y0):int(y1), int(x0):int(x1)] = color
+        boxes.append([x0, y0, x1, y1])
+        classes.append(cls)
+
+    ink = (40.0, 40.0, 40.0)
+    left, top, right, bottom = (px(160, 240), px(120, 200), px(1180, 1300),
+                                px(1080, 1180))
+    tw, mid = px(400, 900), canvas / 2
+    add(mid - tw / 2, top - 90 * u, mid + tw / 2,
+        top - 90 * u + px(30, 50), 0, ink)                          # title
+    xw = px(150, 400)
+    add((left + right - xw) / 2, bottom + 60 * u, (left + right + xw) / 2,
+        bottom + 60 * u + px(25, 40), 1, ink)                       # xlabel
+    yh = px(150, 400)
+    add(left - 150 * u, (top + bottom - yh) / 2,
+        left - 150 * u + px(25, 40), (top + bottom + yh) / 2, 2, ink)  # ylabel
+    add(left, bottom, right, bottom + 4 * u, 5, (0.0, 0.0, 0.0))    # x axis
+    add(left - 4 * u, top, left, bottom, 6, (0.0, 0.0, 0.0))        # y axis
+    n_bars = int(rng.integers(3, 25))
+    slot = (right - left) / n_bars
+    for i in range(n_bars):
+        x0 = left + i * slot + slot / 4
+        h = rng.uniform(0.05, 0.95) * (bottom - top)
+        add(x0, bottom - h, x0 + slot / 2, bottom, 9 + i % 16,
+            tuple(rng.uniform(30, 220, 3)))                         # bar
+        add(x0, bottom + 12 * u, x0 + slot / 2, bottom + 12 * u + px(14, 22),
+            3, ink)                                                 # xtick
+    for j in range(int(rng.integers(4, 10))):
+        y = top + j * (bottom - top) / 10
+        add(left - px(40, 70), y, left - 10 * u, y + px(14, 20), 4,
+            ink)                                                    # ytick
+    for j in range(int(rng.integers(1, 4))):
+        y = top + (20 + 30 * j) * u
+        add(right - 200 * u, y, right - 180 * u, y + 20 * u, 8,
+            tuple(rng.uniform(30, 220, 3)))                         # marker
+        add(right - 170 * u, y, right - 170 * u + px(50, 110), y + 16 * u,
+            7, ink)                                                 # legend
+    n = min(len(boxes), 100)
+    out_boxes = np.zeros((100, 4), np.float32)
+    out_boxes[:n] = np.asarray(boxes[:n], np.float32)
+    cls = np.zeros(100, np.int32)
+    cls[:n] = classes[:n]
+    masks = np.zeros((100, 28, 28), np.float32)
+    masks[:n] = 1.0
+    return {"image": (img - PIXEL_MEAN) / PIXEL_STD, "gt_boxes": out_boxes,
+            "gt_classes": cls, "gt_valid": np.arange(100) < n,
+            "gt_masks28": masks, "hw": (canvas, canvas), "scale": 1.0,
+            "flipped": False}
+
+
+class ChartSet:
+    """An in-memory detector dataset of DET_IMAGES charts, drawn from a
+    seed per index (the machine with the card has no PIL to decode PNGs)."""
+
+    categories = [f"class_{i}" for i in range(DET_CLASSES)]
+
+    def __init__(self, canvas):
+        self.canvas = canvas
+
+    def __len__(self):
+        return DET_IMAGES
+
+    def __getitem__(self, i):
+        import numpy as np
+        return dict(draw_chart(np.random.default_rng(SEED + i), self.canvas),
+                    image_id=i)
+
+
+def detector_profile(trainer, batch, card):
+    """Device time of one detector train step by group, from
+    torch.profiler: convolutions with the GEMMs (cuDNN runs many of its
+    convolutions as xmma GEMMs; the model's few Linear layers are a sliver
+    of them), K3, the kernels launched inside the NMS loop (under the
+    detector::nms ranges) and the rest; the NMS loop's span on the card's
+    timeline and its host time; the busy share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    nms = "detector::nms"
+    groups = {"conv_gemm": 0.0, "roi_align_bwd": 0.0, "nms": 0.0,
+              "other": 0.0}
+    kernels, nms_span = [], 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if e.key == nms:          # the range mirrored on the card's timeline
+            nms_span += ms
+            continue
+        kernels.append((ms, e.count, e.key))
+        low = e.key.lower()
+        if "roi_align_bwd" in low:
+            groups["roi_align_bwd"] += ms
+        elif any(w in low for w in ("conv", "cudnn", "implicit", "winograd",
+                                    "fprop", "dgrad", "wgrad", "nchw", "nhwc",
+                                    "gemm", "cutlass", "xmma", "nvjet",
+                                    "cublas", "matmul")):
+            groups["conv_gemm"] += ms
+        else:
+            groups["other"] += ms
+
+    def kernel_ms(e):
+        return (sum(k.duration for k in e.kernels if k.name != nms)
+                + sum(kernel_ms(c) for c in e.cpu_children))
+
+    ranges = [e for e in prof.events()
+              if e.name == nms and e.device_type == DeviceType.CPU]
+    nms_kernels = sum(kernel_ms(e) for e in ranges) / 1e3
+    nms_host = sum(e.cpu_time_total for e in ranges) / 1e3
+    groups["other"] -= nms_kernels
+    groups["nms"] = nms_kernels
+    busy = sum(groups.values())
+    if busy <= 0:
+        return "device time: not measured (the profiler recorded none)", {}
+    top = "; ".join(f"{k[:50]} x{n} {ms:.2f} ms"
+                    for ms, n, k in sorted(kernels, reverse=True)[:5])
+    line = (f"device time of one detector step (batch {DET_BATCH}, fp32): "
+            f"busy {busy:.2f} of {wall_ms:.2f} ms wall under the profiler "
+            f"({100 * busy / wall_ms:.1f}%): "
+            + ", ".join(f"{g} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
+                        for g, ms in groups.items())
+            + f"; the NMS loop ({len(ranges)} calls) spans {nms_span:.1f} ms "
+            f"of the card's timeline and {nms_host:.1f} ms of host time; top "
+            f"kernels: {top} ({card})")
+    return line, dict(groups, busy=busy, wall=wall_ms, nms_host=nms_host,
+                      nms_span=nms_span)
+
+
+def detector(card, attention, roi_align, rk, failures):
+    """Phase 7: the PlotQA detector trained by DetectorTrainer on the card
+    through K3, the backward of every RoIAlign. The trainer, not this
+    script, turns TF32 off: the phase starts from PyTorch's defaults."""
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.detector.convert import restore_detector_params
+    from crct_tpu_torch.detector.mask_rcnn import MaskRCNN
+    from crct_tpu_torch.detector.trainer import (BATCH_KEYS, DetectorSGD,
+                                                 DetectorTrainer, device_batch,
+                                                 detector_batch_iterator,
+                                                 make_detector_train_step)
+    from crct_tpu_torch.utils.checkpoint import save_detector_checkpoint
+
+    per_step = {f"{name}": DET_BATCH for name in ROI_SHAPES}
+    ds = ChartSet(CANVAS)
+    torch.backends.cuda.matmul.allow_tf32 = False     # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    trainer = DetectorTrainer(num_classes=DET_CLASSES, with_mask=True,
+                              depth=50, seed=SEED, device="cuda")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        failures.append("detector: DetectorTrainer left TF32 on")
+    init_state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    say("detector", f"Mask R-CNN R50-FPN ({n_params / 1e6:.1f} M parameters, "
+                    f"{DET_CLASSES} classes, fp32) built in "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+    step_ms, launches, metrics = [], [], []
+    attention.reset_launch_count()
+    rk.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = None
+    for batch in detector_batch_iterator(ds, DET_BATCH, BATCH_KEYS,
+                                         DET_STEPS, seed=SEED):
+        first = batch if first is None else first
+        torch.cuda.synchronize()
+        k3 = rk.launch_count()
+        t = time.perf_counter()
+        metrics.append(trainer.run_step(batch))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(rk.launch_count() - k3)
+    wall = time.perf_counter() - t0
+    counts = {name: rk.LAUNCHES[(P, C_FPN)]
+              for name, (P, _) in ROI_SHAPES.items()}
+    other = attention.launch_count() + attention.bwd_launch_count()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n = len(step_ms)
+    want = sum(per_step.values())
+    if n != DET_STEPS:
+        failures.append(f"detector: {n} steps, want {DET_STEPS}")
+    bad = [m for m in metrics if not all(math.isfinite(v) for v in m.values())]
+    if bad:
+        failures.append(f"detector: non-finite losses {bad[0]}")
+    if any(k != want for k in launches):
+        failures.append(f"detector: K3 launches per step {launches}, want "
+                        f"{want}")
+    for name, k in counts.items():
+        if k != per_step[name] * n:
+            failures.append(f"detector {name}: {k} K3 launches in {n} steps, "
+                            f"want {per_step[name]} a step")
+    if other:
+        failures.append(f"detector: {other} attention launches")
+    median = float(np.median(step_ms[2:]))
+    say("detector", f"{n} steps at batch {DET_BATCH} on the {CANVAS}^2 "
+                    f"canvas in {wall:.1f} s wall (the batch producer "
+                    f"included); step ms "
+                    f"{', '.join(f'{x:.1f}' for x in step_ms)}; median of "
+                    f"the {n - 2} after 2 warm-up steps {median:.2f} ms = "
+                    f"{DET_BATCH / median * 1e3:.2f} images/s; total loss "
+                    f"first {metrics[0]['total']:.5f} last "
+                    f"{metrics[-1]['total']:.5f}; K3 launches per step "
+                    f"{sorted(set(launches))} (box {counts['box']}, mask "
+                    f"{counts['mask']}); peak {peak_gb:.2f} GB allocated "
+                    f"({card})")
+    say("detector", "losses of the last step: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in metrics[-1].items()))
+    line, _ = detector_profile(trainer, first, card)
+    say("detector", line)
+
+    # --test: inference of the batch, then coco_evaluate over two charts
+    from crct_tpu_torch.detector.trainer import coco_evaluate
+    trainer.model.eval()
+    db = device_batch(first, "cuda")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out = trainer.model(db["image"], train=False, compute_masks=False)
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        metrics_eval = coco_evaluate(trainer.model, ds, max_images=2,
+                                     infer_batch=DET_BATCH)
+    b = out["boxes"]
+    ok = (torch.isfinite(b).all() and torch.isfinite(out["scores"]).all()
+          and b.min() >= 0 and b.max() <= CANVAS
+          and tuple(b.shape) == (DET_BATCH, 100, 4))
+    if not ok:
+        failures.append(f"detector inference: boxes {tuple(b.shape)} in "
+                        f"[{b.min().item()}, {b.max().item()}]")
+    say("detector", f"--test inference of the batch in {infer_ms:.1f} ms: "
+                    f"boxes {tuple(b.shape)} finite within "
+                    f"[{b.min().item():.1f}, {b.max().item():.1f}], "
+                    f"{int(out['valid'].sum())} valid detections; "
+                    f"coco_evaluate over 2 charts {metrics_eval}")
+
+    # checkpoint round trip
+    with tempfile.TemporaryDirectory(prefix="crct_det_") as root:
+        path = os.path.join(root, f"detector_{trainer.step}.ckpt")
+        save_detector_checkpoint(path, trainer.model.state_dict(),
+                                 trainer.step,
+                                 {"stride_in_1x1": False, "depth": 50,
+                                  "pixel_mean": [123.675, 116.28, 103.53],
+                                  "pixel_std": [58.395, 57.12, 57.375]})
+        fresh = MaskRCNN(num_classes=DET_CLASSES).cuda()
+        meta = restore_detector_params(fresh, path, verbose=False)
+        live = trainer.model.state_dict()
+        same = all(torch.equal(v, live[k])
+                   for k, v in fresh.state_dict().items())
+        step = torch.load(path, weights_only=False)["iter_id"]
+        if not (same and step == trainer.step and meta["depth"] == 50):
+            failures.append(f"detector checkpoint: state "
+                            f"{'equal' if same else 'differs'}, step {step}")
+        say("detector", f"checkpoint {os.path.basename(path)} "
+                        f"({os.path.getsize(path) / 1e6:.1f} MB) restored: "
+                        f"state {'equal' if same else 'DIFFERS'}, step {step}")
+    del fresh, trainer, out
+    torch.cuda.empty_cache()
+
+    # cross-check: one fp32 step through K3, and through the einsum backward
+    # and K3's plain version put in its place, from the same weights, batch
+    # and generator state
+    model = MaskRCNN(num_classes=DET_CLASSES).cuda()
+    routes = {"kernel": rk.mlra_backward_kernel,
+              "einsum": roi_align._mlra_backward,
+              "plain": rk.mlra_backward_reference}
+
+    def one_step(route):
+        model.load_state_dict(init_state)
+        opt = DetectorSGD(list(model.parameters()))
+        step = make_detector_train_step(model, opt)
+        gen = torch.Generator("cuda").manual_seed(SEED + 7)
+        before = rk.launch_count()
+        with mock.patch.object(rk, "mlra_backward_kernel", routes[route]):
+            losses = step(db, gen)
+        torch.cuda.synchronize()
+        return ({k: v.item() for k, v in losses.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()},
+                rk.launch_count() - before)
+
+    db = device_batch(first, "cuda")
+    runs = {route: one_step(route) for route in routes}
+    want_l, want_g, want_p, plain_k3 = runs["plain"]
+    report = []
+    if runs["kernel"][3] != want or runs["einsum"][3] or plain_k3:
+        failures.append(f"detector cross-check: K3 launches "
+                        f"{[r[3] for r in runs.values()]}, want "
+                        f"[{want}, 0, 0]")
+    for route in ("kernel", "einsum"):
+        losses, grads, params, _ = runs[route]
+        rel = max(abs(losses[k] - want_l[k]) / max(abs(want_l[k]), 1e-12)
+                  for k in want_l)
+        worst_g, worst_name = 0.0, ""
+        for name, g in grads.items():
+            w = want_g[name]
+            r = ((g - w).abs().max() / w.abs().max().clamp(min=1e-6)).item()
+            if r > worst_g:
+                worst_g, worst_name = r, name
+        worst_p = max((p - want_p[n]).abs().max().item()
+                      for n, p in params.items())
+        if not (rel <= 1e-5 and worst_g <= 1e-4 and worst_p <= 1e-6):
+            failures.append(f"detector cross-check {route}: loss rel {rel}, "
+                            f"gradient of {worst_name} off by {worst_g}, "
+                            f"parameters by {worst_p}")
+        report.append(f"{route}: losses within {rel:.2g} relative (tol "
+                      f"1e-5), worst gradient {worst_name} off by "
+                      f"{worst_g:.2g} of its largest magnitude (tol 1e-4), "
+                      f"parameters after SGD within {worst_p:.2g} (tol 1e-6)")
+    say("cross", f"one fp32 detector step at batch {DET_BATCH} from the same "
+                 f"weights and generator state, against K3's plain version "
+                 f"(total {want_l['total']:.6f}): " + "; ".join(report))
+    del model, runs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -785,7 +1338,8 @@ def main():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 2
     try:
-        from crct_tpu_torch.ops import attention, build
+        from crct_tpu_torch.ops import attention, build, roi_align
+        from crct_tpu_torch.ops import roi_align_kernel as rk
     except ImportError as exc:
         print(f"chip_smoke: the port's package is not beside this script "
               f"({exc})", file=sys.stderr)
@@ -813,7 +1367,7 @@ def main():
                if "registers" in ln or "smem" in ln]
         say("build", f"{kname} for sm_90a in {seconds:.1f} s (nvcc); "
                      f"{use}")
-    say("build", f"both built and loaded in "
+    say("build", f"{len(KERNELS)} kernels built and loaded in "
                  f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -869,15 +1423,22 @@ def main():
                       f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
                       f"({card})")
 
+    roi_rows = [check_roi_kernel(roi_align, rk, name, card, failures)
+                for name in ROI_SHAPES]
+
     launches = serve(card, attention, failures)
     train_counts, batch, params = train(card, attention, failures)
     cross_check(attention, batch, params, failures)
+    roi_counts = detector(card, attention, roi_align, rk, failures)
     for row, kname in zip(kernels, SHAPES):
         row["launches"] = launches[kname]
         row["train_launches"] = train_counts[kname][0]
     for row, kname in zip(bwd_rows, SHAPES):
         row["launches"] = train_counts[kname][1]
     kernels += bwd_rows
+    for row, shape in zip(roi_rows, ROI_SHAPES):
+        row["launches"] = roi_counts[shape]
+    kernels += roi_rows
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

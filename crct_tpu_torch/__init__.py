@@ -10,9 +10,12 @@ the caller asks for the CPU.
 
 Ported so far: the serving path (``cli.serve`` -> ``serve.make_server`` ->
 ``QAScorer.score`` -> the eval step -> ``CRCTModel`` forward) with the
-attention-forward kernel, and the training path (``cli.train`` ->
+attention-forward kernel, the training path (``cli.train`` ->
 ``train_loop.run_training`` -> ``Trainer.run_step`` -> forward, losses,
-backward through the attention-backward kernel, 4-group AdamW).
+backward through the attention-backward kernel, 4-group AdamW), and
+detector training (``cli.detector_train`` -> ``DetectorTrainer.run_step``
+-> Mask R-CNN R50-FPN losses, backward through the RoIAlign-backward
+kernel, SGD with momentum).
 """
 
 __version__ = "0.1.0"

@@ -32,7 +32,7 @@ def main(argv=None):
                              f"trainer")
     if not params["no_eval"]:
         raise SystemExit("in-train evaluation is not ported yet (ROADMAP.md "
-                         "§1, slice 3: evaluate() and cli/evaluate.py); "
+                         "§1, slice 4: evaluate() and cli/evaluate.py); "
                          "pass -no_eval")
     device = params["device"]
     if device == "cuda" and params["cuda_num"] >= 0:

@@ -11,6 +11,10 @@ load_torch_checkpoint`` reads it back), ``optimizer_state_dict`` and
     freshly initialized model (weight transplant across head variants),
   * *continue* -- params + optimizer state + step, with the epoch parsed
     from the checkpoint's file name.
+
+The detector's checkpoints (``detector_<iter>.ckpt``) hold its state dict,
+the step and the build facts it needs (:func:`save_detector_checkpoint`);
+``detector.convert.restore_detector_params`` reads them back.
 """
 
 from __future__ import annotations
@@ -92,3 +96,23 @@ def transfer_params(model: torch.nn.Module, loaded: Dict[str, torch.Tensor],
     if verbose:
         print(f"number of keys transferred: {len(picked)}")
     return len(picked)
+
+
+def detector_checkpoint_name(iter_id: int) -> str:
+    return f"detector_{iter_id}.ckpt"
+
+
+def save_detector_checkpoint(path: str, model_state: Dict[str, torch.Tensor],
+                             iter_id: int, detector_meta: Dict[str, Any]
+                             ) -> None:
+    """Write a detector checkpoint (the JAX ``cli/detector_train.py``'s
+    ``detector_<iter>.ckpt``): the model's state dict in Detectron2 names,
+    frozen-norm buffers included, the step, and ``detector_meta`` (stride
+    convention, pixel mean and std, depth), which extraction and serving
+    rebuild the model from. The file appears whole or not at all."""
+    tree = {"model_state_dict": {k: v.detach().cpu()
+                                 for k, v in model_state.items()},
+            "iter_id": int(iter_id), "detector_meta": dict(detector_meta)}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(tree, tmp)
+    os.replace(tmp, path)

@@ -1,8 +1,10 @@
 """The port stands alone, and runs on the CPU only when asked.
 
 crct_tpu_torch imports torch and numpy and nothing of JAX or of the JAX
-package; its entry points run on the card unless the caller passes
-device="cpu", and with no card they raise instead of carrying on on the CPU.
+package, and PIL only inside the functions that decode or draw (the machine
+with the card has none); its entry points run on the card unless the caller
+passes device="cpu", and with no card they raise instead of carrying on on
+the CPU.
 """
 
 import subprocess
@@ -26,7 +28,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "orbax", "crct_tpu"))
+                                            "orbax", "crct_tpu", "PIL"))
         assert not bad, bad
         assert "crct_tpu_torch.serve" in names, names
         print(len(names))
@@ -86,3 +88,12 @@ def test_train_entry_points_default_to_the_card(no_card, tmp_path):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval"])
     with pytest.raises(RuntimeError, match="no card"):
         Trainer(default_params(save_path=str(tmp_path)), None, 1)
+
+
+def test_detector_entry_points_default_to_the_card(no_card):
+    from crct_tpu_torch.cli.detector_train import main
+    from crct_tpu_torch.detector.trainer import DetectorTrainer
+    with pytest.raises(RuntimeError, match="no card"):
+        main(["--annotations", "train.json", "--image-dir", "png"])
+    with pytest.raises(RuntimeError, match="no card"):
+        DetectorTrainer(num_classes=3, depth=14)

@@ -10,8 +10,10 @@ JAX-bound tests/conftest.py:
 Tolerances: fp32 at 1e-5 (the kernels and the plain versions both compute
 fp32 scores, probabilities and sums; only the summation order differs), of
 the largest gradient magnitude for the backward; bf16 at 2e-2 (one bf16
-rounding of each output). chip_smoke.py holds the kernels against the plain
-versions at the flagship shapes too.
+rounding of each output). The RoIAlign backward (K3) at 2e-5 of
+max(1, |grad|) in fp32 (fp32 atomics reorder the sums) and 1e-2 of it in
+bf16. chip_smoke.py holds the kernels against the plain versions at the
+flagship shapes too.
 """
 
 from unittest import mock
@@ -24,7 +26,8 @@ from crct_tpu_torch.config import CRCTModelConfig
 from crct_tpu_torch.models import layers
 from crct_tpu_torch.models.crct import CRCTModel
 from crct_tpu_torch.models.layers import init_weights
-from crct_tpu_torch.ops import attention
+from crct_tpu_torch.ops import attention, roi_align
+from crct_tpu_torch.ops import roi_align_kernel as rk
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -211,4 +214,129 @@ def test_model_train_step_goes_through_both_kernels_on_card(card):
     for name, g in grads.items():
         tol = 1e-4 * max(want[name].abs().max().item(), 1e-6)
         torch.testing.assert_close(g, want[name], atol=tol, rtol=0,
+                                   msg=name)
+
+
+ROI_CFG = ((4, 8, 16, 32), None, 2, 4, 224, 2, 5)
+PYRAMID = [(336, 336), (168, 168), (84, 84), (42, 42)]     # 1344 canvas
+
+
+def roi_cfg(P):
+    return (ROI_CFG[0], P) + ROI_CFG[2:]
+
+
+def roi_boxes(n, seed):
+    """Boxes on the 1344 canvas, every FPN level taking some: wide labels,
+    tall thin bars, tiny ticks, whole-figure boxes."""
+    g = np.random.default_rng(seed)
+    kind = np.arange(n) % 4
+    lo = np.asarray([[300, 20], [12, 100], [6, 6], [500, 500]])[kind]
+    hi = np.asarray([[900, 50], [120, 1100], [60, 24], [1344, 1344]])[kind]
+    wh = g.uniform(lo, hi)
+    xy = g.random((n, 2)) * (1344 - wh)
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("P,N", [(7, 256), (14, 64)], ids=["box", "mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_roi_align_kernel_matches_plain_on_card(card, P, N, dtype):
+    """K3 at the flagship shapes (C = 256, the 1344 pyramid): one launch,
+    the maps' dtype, and the plain version's gradient: fp32 within 2e-5 of
+    max(1, |grad|) (atomics reorder the sums); bf16 element by element
+    within 2^-7 of |want| + 1e-3 (both sum in fp32 from the same bf16 g
+    and round once, so they differ by at most about one bf16 ulp)."""
+    boxes = torch.from_numpy(roi_boxes(N, P)).to(card)
+    g = torch.randn(N, P, P, 256, device=card,
+                    generator=torch.Generator(card).manual_seed(P)).to(dtype)
+    geo = roi_align.mlra_geometry(PYRAMID, boxes, *roi_cfg(P))
+    assert set(geo["lvl"].tolist()) == {0, 1, 2, 3}
+    before = rk.launch_count()
+    got = rk.mlra_backward_kernel(g, geo, PYRAMID, dtype, 2)
+    assert rk.launch_count() == before + 1
+    want = rk.mlra_backward_reference(g, geo, PYRAMID, dtype, 2)
+    top = max(1.0, max(w.float().abs().max().item() for w in want))
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=2e-5 * top, rtol=0)
+        else:
+            torch.testing.assert_close(a.float(), w.float(), atol=1e-3,
+                                       rtol=2 ** -7)
+
+
+def test_roi_align_kernel_rejects_what_it_does_not_take_on_card(card):
+    boxes = torch.from_numpy(roi_boxes(8, 0)).to(card)
+    geo = roi_align.mlra_geometry(PYRAMID, boxes, *roi_cfg(7))
+    cpu_geo = {k: v.cpu() for k, v in geo.items()}
+    none = roi_align.mlra_geometry(PYRAMID, boxes[:0], *roi_cfg(7))
+    g = torch.randn(8, 7, 7, 16, device=card)
+    f32 = torch.float32
+    before = rk.launch_count()
+    for bad in ((g.half(), geo, PYRAMID, f32),
+                (g, geo, PYRAMID, torch.float16),
+                (g, cpu_geo, PYRAMID, f32),
+                (g[:, :6], geo, PYRAMID, f32),
+                (g[:0], none, PYRAMID, f32)):
+        with pytest.raises((TypeError, ValueError)):
+            rk.mlra_backward_kernel(*bad, 2)
+    with pytest.raises(ValueError):          # P * S above the kernel's 64
+        rk.mlra_backward_kernel(
+            torch.randn(8, 33, 33, 16, device=card),
+            roi_align.mlra_geometry(PYRAMID, boxes, *roi_cfg(33)), PYRAMID,
+            f32, 2)
+    assert rk.launch_count() == before
+
+
+def test_detector_train_step_goes_through_k3_on_card(card, monkeypatch):
+    """One train step of a tiny detector (depth 14, 128 x 128, batch 2):
+    one K3 launch per image and RoIAlign branch, and the
+    losses and gradients of the same step through K3's plain version
+    (fp32: losses within 1e-5 relative, gradients within 1e-4 of their
+    largest magnitude)."""
+    from crct_tpu_torch.detector.mask_rcnn import (MaskRCNN,
+                                                   init_detector_weights)
+    model = MaskRCNN(num_classes=4, depth=14, roi_batch=32,
+                     post_nms_topk_train=64, fc_dim=64)
+    init_detector_weights(model, torch.Generator().manual_seed(0))
+    model.to(card)
+    g = np.random.default_rng(1)
+    gt = np.zeros((2, 8, 4), np.float32)
+    gt[:, :6] = roi_boxes(12, 3).reshape(2, 6, 4) / 10.5
+    batch = {"images": torch.from_numpy(g.normal(size=(2, 128, 128, 3))
+                                        .astype(np.float32)).to(card),
+             "gt_boxes": torch.from_numpy(gt).to(card),
+             "gt_classes": torch.from_numpy(g.integers(0, 4, (2, 8))
+                                            .astype(np.int32)).to(card),
+             "gt_valid": torch.from_numpy(np.arange(8) < 6).expand(2, 8)
+                              .to(card),
+             "gt_masks28": torch.ones(2, 8, 28, 28, device=card)}
+    # fp32 convolutions without TF32, as DetectorTrainer runs them: TF32
+    # would turn the atomics' last-bit differences into ~1e-3 ones
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        losses = model(batch["images"], train=True,
+                       gt_boxes=batch["gt_boxes"],
+                       gt_classes=batch["gt_classes"],
+                       gt_valid=batch["gt_valid"],
+                       gt_masks28=batch["gt_masks28"],
+                       generator=torch.Generator(card).manual_seed(2))
+        losses["total"].backward()
+        return ({k: v.item() for k, v in losses.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+
+    rk.reset_launch_count()
+    losses, grads = step()
+    assert rk.LAUNCHES == {(7, 256): 2, (14, 256): 2}
+    monkeypatch.setattr(rk, "mlra_backward_kernel",
+                        rk.mlra_backward_reference)
+    want_losses, want = step()
+    assert rk.launch_count() == 4
+    for k, w in want_losses.items():
+        assert abs(losses[k] - w) <= 1e-5 * abs(w), k
+    for name, gr in grads.items():
+        tol = 1e-4 * max(want[name].abs().max().item(), 1e-6)
+        torch.testing.assert_close(gr, want[name], atol=tol, rtol=0,
                                    msg=name)
