@@ -3,7 +3,15 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--tree DIR] [--phases LIST] [--seeds N]
+
+With no arguments it runs every phase below on the port beside it. --tree
+drives another checkout's crct_tpu_torch instead, --phases a comma-separated
+subset (plus "times": K1 and K2 timed through fused_attention alone, at the
+flagship shapes in both dtypes, as the kernel phase times them), and --seeds
+the generator seeds of each cross-check step; such a run prints each phase's
+result as a JSON line and not the result line. Comparing two checkouts on
+one card: parent, change, change, parent, with --phases times,cross.
 
 Phases, one line each (any failure exits non-zero):
   1. device  - the card's name and power limit, as nvidia-smi gives them;
@@ -11,13 +19,16 @@ Phases, one line each (any failure exits non-zero):
                attention_{fwd,bwd}.cu and roi_align_bwd.cu for sm_90a, all
                at once, and reports their registers and shared memory;
   3. kernel  - the forward kernel (K1) against its plain PyTorch version at
-               the four flagship attention shapes (B = 240 rows), and the
-               backward kernel (K2) against its plain version at the same
-               shapes at the train batch (B = 80): fp32 and bf16, key-only
-               and full masks, dropout 0 and 0.1 with one seed, and
-               <out, C> = <v, dv> under dropout; each kernel's time, the
-               plain version's, one PyTorch call's (a yardstick the port
-               never calls) and the least time the card could take;
+               the four flagship attention shapes (B = 240 rows), output and
+               log-sum-exp, and the backward kernel (K2) against its plain
+               version at the same shapes at the train batch (B = 80): fp32
+               and bf16, key-only and full masks, dropout 0 and 0.1 with one
+               seed, and <out, C> = <v, dv> under dropout; K2's shared
+               memory, warps and resident blocks; in each dtype, each
+               kernel's time, the plain version's, one PyTorch call's (SDPA,
+               a yardstick the port never calls) and the least time the card
+               could take (for fp32 also at the 3xTF32 rate the kernels
+               run); in bf16, how K1's output is rounded against fp64;
   4. serve   - the flagship PlotQA model (config/vilbert.json, random
                weights from a seed, fp32) behind make_server on the card:
                concurrent /v1/answer requests and one /v1/answers batch over
@@ -30,10 +41,16 @@ Phases, one line each (any failure exits non-zero):
                pairs/s, losses, exactly 30 K1 and 30 K2 launches a step, peak
                memory, a torch.profiler split of one step, and a checkpoint
                restored with -continue to the same parameters and step;
-  6. cross   - one fp32 train step from the same weights with dropout on,
+  6. cross   - one train step from the same weights with dropout on,
                through K1/K2 and through the plain forward and backward
-               from the same generator state: loss, every gradient and the
-               parameters after the AdamW update;
+               from the same generator state, in fp32 (loss, every gradient
+               and the parameters after the AdamW update) and in bf16 (loss
+               and the worst relative L2 gradient difference apart from key
+               biases, held at limits set from readings); in bf16 also a
+               witness step (plain forward, kernels' backward) and three
+               control steps (P and dS rounded to bf16, read; the
+               backward's dropout mask from another seed, and another
+               dropout draw, both of which the limits must catch);
   7. detector - the PlotQA Mask R-CNN R50-FPN (25 classes, random weights
                from a seed, fp32) trained by DetectorTrainer at batch 2 on
                the 1344 x 1344 canvas, fed by detector_batch_iterator over
@@ -45,7 +62,8 @@ Phases, one line each (any failure exits non-zero):
                step, one fp32 step through K3, the einsum backward and K3's
                plain version from the same weights and generator state,
                one --test inference and a checkpoint round trip.
-The line before the last holds the kernels' numbers as JSON; the last line
+The line before the last holds the kernels' numbers as JSON, a row for each
+kernel, shape and (for K1 and K2) dtype; the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
 package beside this script, it prints no result and exits non-zero.
 """
@@ -72,13 +90,44 @@ SEED = 1234
 SHAPES = {"text": (16, 124, 124, 48), "vision": (16, 44, 44, 64),
           "bi_text_queries": (32, 124, 44, 32),
           "bi_vision_queries": (32, 44, 124, 32)}
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+# H100 SXM, dense: fp32 on the CUDA cores (the bound of the fp32 rows, as
+# in earlier measurements), TF32 and bf16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+# limits of the bf16 cross-check (a whole bf16 train step through K1/K2
+# against the plain versions): the loss, and the worst leaf's relative L2
+# gradient difference apart from key biases (zero in exact arithmetic, so
+# rounding noise). Set between the sound steps' readings (K1/K2, and P and
+# dS in bf16: up to 7.9e-5 and 0.069 over three seeds) and the controls'
+# that must fail (another dropout draw, 8.9e-4; the backward's mask from
+# another seed, 0.20); PERF.md, section 6
+BF16_CROSS = {"loss_rel": 2.5e-4, "grad_l2": 0.12}
+# the fp32 cross-check's limits: loss, every gradient, parameters after the
+# update
+FP32_CROSS = {"loss_rel": 1e-5, "grad_all": 1e-4, "param": 1e-6}
+LIMIT_NAMES = {"loss_rel": "loss, relative",
+               "grad_all": "worst gradient, max |diff| / max |plain|",
+               "grad_l2": "worst gradient apart from key biases, relative L2",
+               "param": "parameters after AdamW, max |diff|"}
+# K1's output and K2's gradients in bf16 may be off an fp64 computation, on
+# average, by at most this times the plain versions' error: between the
+# kernels' readings (1.0001 of it) and those of a control that rounds P and
+# dS to bf16 (1.56-1.59); PERF.md, section 6
+ROUNDING = 1.25
+# the bf16 cross-check's controls (cross_attentions): name -> (P and dS
+# rounded to bf16, the forward's and the backward's dropout seed shift)
+CONTROLS = {"control_p": (True, 0, 0), "control_mask": (False, 0, 1),
+            "control_draw": (False, 1, 1)}
+# the controls that must fail BF16_CROSS: a whole step cannot tell P and dS
+# in bf16 from the kernels' own rounding (PERF.md, section 6), so that
+# control is held at the kernel level (ROUNDING) and only read here
+MUST_FAIL = ("control_mask", "control_draw")
 HBM_BYTES_PER_S = 3.35e12
 N_CONCURRENT = 24             # concurrent /v1/answer requests
 N_BATCH = 8                   # questions in the /v1/answers request
 TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
 KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
+PHASES = ("kernel", "serve", "train", "cross", "detector")
 # the detector: the PlotQA Mask R-CNN R50-FPN of crct_tpu.cli.detector_train
 # (1344 canvas, batch 2, 256 sampled rois an image, 64 of them to the mask
 # branch); 25 classes as the JAX package's production detector bench
@@ -120,15 +169,206 @@ def device_line():
     return out.strip().splitlines()[0]
 
 
+def bound(flops, nbytes, dtype, rate=None):
+    """(bound ms, what bounds it): FLOPs at the card's peak for the dtype
+    (or at ``rate`` FLOP/s) against bytes at its memory rate."""
+    t_ops = flops / (rate or PEAK_FLOPS[dtype]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_row(kernel, name, dtype, err, times, flops, nbytes):
+    """One row of the kernels' JSON line (launches are filled in later).
+    fp32 rows also get the bound at the rate of fp32-accurate products on
+    the tensor cores, 3xTF32 (a third of the TF32 rate), as the kernels run
+    them."""
+    dname = str(dtype)[6:]
+    bound_ms, bound_by = bound(flops, nbytes, dname)
+    row = {
+        "name": f"attention_{kernel}[{name}"
+                + ("" if dname == "float32" else f",{dname}") + "]",
+        "route": "cuda",
+        "source": f"crct_tpu_torch/csrc/attention_{kernel}.cu",
+        "replaces": "crct_tpu/ops/attention.py:"
+                    + ("82" if kernel == "fwd" else "96"),
+        "dtype": dname, "max_abs_err": err, **times,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    if dname == "float32":
+        row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = bound(
+            flops, nbytes, dname, PEAK_FLOPS["tf32"] / 3)
+    return row
+
+
+def device_ms(fn, name=None, iters=20, warmup=3):
+    """Mean device time of one call, ms: the time of its CUDA kernels (those
+    whose name holds ``name``, if given) under torch.profiler over ``iters``
+    calls after ``warmup``. The host's time to launch them is left out:
+    through Python wrappers it exceeds the smaller kernels' own time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and (name is None or name in e.key))
+    return us / 1e3 / iters
+
+
+def fwd_ms(attention, q, k, v, mask):
+    """Device ms of a K1 launch: a forward of fused_attention without a
+    gradient."""
+    return device_ms(lambda: attention.fused_attention(q, k, v, mask),
+                     "attention_fwd")
+
+
+def backward_ms(fn, g, inputs, name=None):
+    """Device ms of autograd's backward of fn(*inputs) alone (the forward's
+    graph kept), for the cotangent g."""
+    import torch
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    return device_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                 retain_graph=True), name)
+
+
+def bwd_ms(attention, q, k, v, mask, g):
+    """Device ms of a K2 launch: the backward of one fused_attention forward,
+    so that any checkout's K2 times the same way."""
+    return backward_ms(lambda *x: attention.fused_attention(*x, mask), g,
+                       (q, k, v), "attention_bwd")
+
+
+def attention_math(q, k, v, mask, g=None, keep=None, bwd_keep=None,
+                   round_p=None):
+    """Attention's output, and with the cotangent g its gradients (out, dq,
+    dk, dv), by the plain formulas in q's floating type (fp32 or fp64),
+    with P and dS passed through ``round_p`` before the products that take
+    them, the forward's dropout multipliers ``keep`` and the backward's
+    ``bwd_keep`` (the forward's where None): the reference and the controls
+    that the rounding and cross-checks hold the kernels beside."""
+    import torch
+    r = round_p or (lambda x: x)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.dtype == torch.float32:
+        scale = float(torch.tensor(scale, dtype=torch.float32))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.softmax(s if mask is None else s + mask.to(q.dtype), -1)
+    out = torch.matmul(r(p if keep is None else p * keep), v)
+    if g is None:
+        return out
+    keep = keep if bwd_keep is None else bwd_keep
+    pd, dp = p, torch.matmul(g, v.transpose(-1, -2))
+    if keep is not None:
+        pd, dp = p * keep, dp * keep
+    dv = torch.matmul(r(pd).transpose(-1, -2), g)
+    ds = r(p * (dp - (dp * p).sum(-1, keepdim=True)))
+    return (out, torch.matmul(ds, k) * scale,
+            torch.matmul(ds.transpose(-1, -2), q) * scale, dv)
+
+
+def bf16_round(x):
+    return x.bfloat16().float()
+
+
+def hold_rounding(what, rnd, failures):
+    """The kernels' bf16 results within ROUNDING of the plain versions'
+    error against fp64, and the control (P and dS in bf16) outside it."""
+    got, plain, ctrl = rnd
+    if not got <= ROUNDING * plain:
+        failures.append(f"{what} bf16: mean error against fp64 {got} > "
+                        f"{ROUNDING} x the plain version's {plain}")
+    if not ctrl > ROUNDING * plain:
+        failures.append(f"{what} bf16: the control (P and dS in bf16) is "
+                        f"within {ROUNDING} x the plain version's error "
+                        f"({ctrl} against {plain}): the check cannot see it")
+
+
+def rounding_note(rnd):
+    return ("" if rnd is None else
+            f"; mean error against fp64, relative: kernel {rnd[0]:.5g}, "
+            f"plain {rnd[1]:.5g}, control (P, dS in bf16) {rnd[2]:.5g} "
+            f"(limit {ROUNDING:g} x plain)")
+
+
+def rounding(attention, q, k, v, mask, g=None):
+    """How bf16 results are rounded: the mean |error| against an fp64
+    computation, relative to the fp64 results' mean magnitude (averaged over
+    dq, dk and dv with the cotangent g), of the kernels' (K1's output, or
+    K2's gradients), of the plain versions', and of a control's: the plain
+    formulas with P (and dS) rounded to bf16 before the products that take
+    them."""
+    import torch
+    d = [x.double() for x in (q, k, v)]
+    exact = attention_math(*d, mask.double(),
+                           None if g is None else g.double())
+    ctrl = attention_math(*(x.float() for x in (q, k, v)), mask,
+                          None if g is None else g.float(),
+                          round_p=bf16_round)
+    if g is None:
+        got = (attention.fused_attention(q, k, v, mask),)
+        plain = (attention.attention_reference(q, k, v, mask),)
+        exact, ctrl = (exact,), (ctrl,)
+    else:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(
+            attention.fused_attention(*leaves, mask), leaves, g)
+        plain = attention.attention_bwd_reference(q, k, v, mask, g)
+        exact, ctrl = exact[1:], ctrl[1:]
+    ctrl = [x.to(q.dtype) for x in ctrl]
+
+    def err(xs):
+        return sum(((x.double() - e).abs().mean() / e.abs().mean()).item()
+                   for x, e in zip(xs, exact)) / len(exact)
+    return err(got), err(plain), err(ctrl)
+
+
+def kernel_times(attention):
+    """Phase times: device ms of a K1 launch at B rows and K2 at B_TRAIN at
+    the four flagship shapes in fp32 and bf16 (key-only mask, no dropout),
+    through fused_attention alone, as the kernel phase times them: the
+    phase that compares two checkouts (--tree) on one card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ms = {}
+    for name, (H, Lq, Lk, D) in SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            def inputs(rows):
+                q, k, v, gr = (torch.randn(rows, H, L, D, device="cuda",
+                                           generator=g).to(dtype)
+                               for L in (Lq, Lk, Lk, Lq))
+                mask = torch.where(torch.rand(rows, 1, 1, Lk, device="cuda",
+                                              generator=g) < 0.2,
+                                   -10000.0, 0.0)
+                return q, k, v, gr, mask
+            q, k, v, _, mask = inputs(B)
+            k1 = fwd_ms(attention, q, k, v, mask)
+            q, k, v, gr, mask = inputs(B_TRAIN)
+            ms[f"{name},{str(dtype)[6:]}"] = {
+                "fwd": k1, "bwd": bwd_ms(attention, q, k, v, mask, gr)}
+    return ms
+
+
 def check_kernel(attention, name, shape, failures):
-    """The kernel against its plain version at one flagship shape; its
-    timings and bound (fp32, key-only mask, no dropout: the serve case)."""
+    """K1 against its plain version at one flagship shape, fp32 and bf16,
+    key-only and full masks, dropout 0 and 0.1: the output (through
+    fused_attention, which skips the log-sum-exp without a gradient) and
+    the output and log-sum-exp of attention_forward (tolerance 1e-5 of
+    max(1, |lse|)). Its timings and bound in each dtype (key-only mask, no
+    dropout: the serve case)."""
     import torch
     import torch.nn.functional as F
     H, Lq, Lk, D = shape
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {}
+    rows = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        worst, worst_lse = 0.0, 0.0
         for full in (False, True):
             for rate in (0.0, 0.1):
                 q, k, v = (torch.randn(B, H, L, D, device="cuda",
@@ -138,54 +378,64 @@ def check_kernel(attention, name, shape, failures):
                                               device="cuda", generator=g)
                                    < 0.2, -10000.0, 0.0)
                 got = attention.fused_attention(q, k, v, mask, rate, SEED)
-                want = attention.attention_reference(q, k, v, mask, rate,
-                                                     SEED)
+                got2, lse = attention.attention_forward(q, k, v, mask, rate,
+                                                        SEED)
+                want, want_lse = attention.attention_reference(
+                    q, k, v, mask, rate, SEED, return_lse=True)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                err = max((x.float() - want.float()).abs().max().item()
+                          for x in (got, got2))
+                err_lse = (lse - want_lse).abs().max().item()
+                top = max(1.0, want_lse.abs().max().item())
                 case = (f"{name} {str(dtype)[6:]} "
                         f"{'full' if full else 'key-only'} mask rate {rate}")
                 if not err <= tol:
                     failures.append(f"{case}: max abs err {err} > {tol}")
-                errs[(dtype, full, rate)] = err
+                if not err_lse <= 1e-5 * top:
+                    failures.append(f"{case}: lse off by {err_lse} > 1e-5 x "
+                                    f"{top}")
+                worst, worst_lse = max(worst, err), max(worst_lse,
+                                                        err_lse / top)
 
-    q, k, v = (torch.randn(B, H, L, D, device="cuda", generator=g)
-               for L in (Lq, Lk, Lk))
-    mask = torch.where(torch.rand(B, 1, 1, Lk, device="cuda", generator=g)
-                       < 0.2, -10000.0, 0.0)
-    ms = time_ms(lambda: attention.fused_attention(q, k, v, mask))
-    plain_ms = time_ms(lambda: attention.attention_reference(q, k, v, mask))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask))
-    flops = 4.0 * B * H * Lq * Lk * D
-    nbytes = 4.0 * (2 * B * H * Lq * D + 2 * B * H * Lk * D + B * Lk)
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {
-        "name": f"attention_fwd[{name}]",
-        "route": "cuda",
-        "source": "crct_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "crct_tpu/ops/attention.py:82",
-        "max_abs_err": max(e for (d, _, _), e in errs.items()
-                           if d == torch.float32),
-        "max_abs_err_bf16": max(e for (d, _, _), e in errs.items()
-                                if d == torch.bfloat16),
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
-    return row, flops, nbytes
+        q, k, v = (torch.randn(B, H, L, D, device="cuda",
+                               generator=g).to(dtype)
+                   for L in (Lq, Lk, Lk))
+        mask = torch.where(torch.rand(B, 1, 1, Lk, device="cuda",
+                                      generator=g) < 0.2, -10000.0, 0.0)
+        times = {
+            "ms": fwd_ms(attention, q, k, v, mask),
+            "plain_ms": device_ms(lambda: attention.attention_reference(
+                q, k, v, mask)),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask.to(dtype))),
+        }
+        flops = 4.0 * B * H * Lq * Lk * D
+        # q, k, v, out in the dtype; the key-only fp32 mask
+        nbytes = (q.element_size() * (2 * B * H * Lq * D + 2 * B * H * Lk * D)
+                  + 4.0 * B * Lk)
+        rnd = None
+        if dtype != torch.float32:
+            rnd = rounding(attention, q, k, v, mask)
+            hold_rounding(f"K1 {name}", rnd, failures)
+        rows.append((kernel_row("fwd", name, dtype, worst, times, flops,
+                                nbytes), flops, nbytes, worst_lse, rnd))
+    return rows
 
 
 def check_bwd_kernel(attention, name, shape, failures):
     """K2 against its plain version at one flagship shape at the train
-    batch; its timings and bound (fp32, key-only mask, no dropout). The
-    fp32 tolerance is 1e-5 of the larger of 1 and the largest gradient
-    magnitude, bf16's 2e-2 of it."""
+    batch, fp32 and bf16, key-only and full masks, dropout 0 and 0.1: the
+    gradients of fused_attention (K1 then K2 on K1's output and
+    log-sum-exp) against attention_bwd_reference recomputing everything.
+    The fp32 tolerance is 1e-5 of the larger of 1 and the largest gradient
+    magnitude, bf16's 2e-2 of it. Its timings and bound in each dtype
+    (key-only mask, no dropout): K2 through autograd's backward, the plain
+    version as the autograd Function runs it on CPU tensors (from K1's
+    output and lse), SDPA's backward alone."""
     import torch
     import torch.nn.functional as F
     H, Lq, Lk, D = shape
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    errs = {}
 
     def inputs(dtype, full):
         q, k, v, gr = (torch.randn(B_TRAIN, H, L, D, device="cuda",
@@ -196,7 +446,9 @@ def check_bwd_kernel(attention, name, shape, failures):
                            < 0.2, -10000.0, 0.0)
         return q, k, v, gr, mask
 
+    rows = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        worst = 0.0
         for full in (False, True):
             for rate in (0.0, 0.1):
                 q, k, v, gr, mask = inputs(dtype, full)
@@ -214,7 +466,30 @@ def check_bwd_kernel(attention, name, shape, failures):
                 if not err <= tol * max(1.0, top):
                     failures.append(f"K2 {case}: max abs err {err} > {tol} "
                                     f"x max(1, {top})")
-                errs[(dtype, full, rate)] = err
+                worst = max(worst, err)
+
+        q, k, v, gr, mask = inputs(dtype, False)
+        out, lse = attention.attention_forward(q, k, v, mask)
+        times = {
+            "ms": bwd_ms(attention, q, k, v, mask, gr),
+            "plain_ms": device_ms(lambda: attention.attention_bwd_reference(
+                q, k, v, mask, gr, lse=lse, out=out)),
+            # SDPA's backward alone
+            "library_ms": backward_ms(
+                lambda *x: F.scaled_dot_product_attention(
+                    *x, attn_mask=mask.to(dtype)), gr, (q, k, v)),
+        }
+        flops = 10.0 * B_TRAIN * H * Lq * Lk * D
+        # q, g, dq; k, v, dk, dv in the dtype; the key-only fp32 mask
+        nbytes = (q.element_size() * (3 * B_TRAIN * H * Lq * D
+                                      + 4 * B_TRAIN * H * Lk * D)
+                  + 4.0 * B_TRAIN * Lk)
+        rnd = None
+        if dtype != torch.float32:
+            rnd = rounding(attention, q, k, v, mask, gr)
+            hold_rounding(f"K2 {name}", rnd, failures)
+        rows.append((kernel_row("bwd", name, dtype, worst, times, flops,
+                                nbytes), flops, nbytes, rnd))
 
     # out is linear in v: <out, C> = <v, dv> only with the forward's mask
     q, k, v, gr, mask = inputs(torch.float32, False)
@@ -225,40 +500,7 @@ def check_bwd_kernel(attention, name, shape, failures):
     rhs = (v.double() * dv.double()).sum().item()
     if not abs(lhs - rhs) <= 1e-5 * abs(lhs):
         failures.append(f"K2 {name}: <out,C> {lhs} != <v,dv> {rhs}")
-
-    q, k, v, gr, mask = inputs(torch.float32, False)
-    ms = time_ms(lambda: attention._launch_bwd(q, k, v, mask, gr, 0.0, 0))
-    plain_ms = time_ms(lambda: attention.attention_bwd_reference(
-        q, k, v, mask, gr))
-    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
-
-    # SDPA's backward alone: forward + backward minus forward
-    library_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
-                                                      gr))
-                  - time_ms(sdpa))
-    flops = 10.0 * B_TRAIN * H * Lq * Lk * D
-    # q, g, dq; k, v, dk, dv; the key-only mask
-    nbytes = 4.0 * (3 * B_TRAIN * H * Lq * D + 4 * B_TRAIN * H * Lk * D
-                    + B_TRAIN * Lk)
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {
-        "name": f"attention_bwd[{name}]",
-        "route": "cuda",
-        "source": "crct_tpu_torch/csrc/attention_bwd.cu",
-        "replaces": "crct_tpu/ops/attention.py:96",
-        "max_abs_err": max(e for (d, _, _), e in errs.items()
-                           if d == torch.float32),
-        "max_abs_err_bf16": max(e for (d, _, _), e in errs.items()
-                                if d == torch.bfloat16),
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
-    return row, flops, nbytes, abs(lhs - rhs) / abs(lhs)
+    return rows, abs(lhs - rhs) / abs(lhs)
 
 
 def post(url, payload):
@@ -480,7 +722,7 @@ def serve(card, attention, failures):
                 "questions": [{"image_index": i, "question_id": q}
                               for i, q in batch]})
             torch.cuda.synchronize()
-            launches = {name: attention.LAUNCHES[shape]
+            launches = {name: attention.LAUNCHES[("float32", *shape)]
                         for name, shape in SHAPES.items()}
             forwards = scorer.dispatches
             batches = list(server.batcher.batch_sizes)
@@ -605,14 +847,42 @@ def step_profile(trainer, batch, cfg, card):
     return line, dict(groups, busy=busy, wall=wall_ms)
 
 
+def train_data(root):
+    """run_training's params (the flagship model at batch 80, bf16, dropout,
+    4 loader workers) and the synthetic train split, made under root."""
+    from crct_tpu_torch.config import default_params
+    from crct_tpu_torch.data.dataset import ChartQADataset
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    data = generate_dataset(os.path.join(root, "data"), n_images=TRAIN_IMAGES,
+                            division=8, n_questions=4, feat_dim=1024,
+                            splits=("train",), seed=SEED)
+    params = default_params(
+        figure_feat_path=data["figure_feat_path"],
+        qa_parent_dir=data["qa_parent_dir"], dataset_config=data,
+        model_config=os.path.join(HERE, "config", "vilbert.json"), seed=SEED,
+        batch_size=B_TRAIN, num_epochs=1, num_workers=4, no_eval=True,
+        bf16=True, save_path=os.path.join(root, "results"), max_seq_len=124,
+        max_vis_features=44)
+    return params, ChartQADataset(params, ["train"])
+
+
+def train_batch():
+    """The first batch of the train split and its params, for the
+    cross-check when the train phase does not run."""
+    from crct_tpu_torch.data.dataset import DataLoader
+    with tempfile.TemporaryDirectory(prefix="crct_cross_") as root:
+        params, dataset = train_data(root)
+        loader = DataLoader(dataset, B_TRAIN, shuffle=False, num_workers=1)
+        return next(iter(loader)), params
+
+
 def train(card, attention, failures):
     """Phase 5: the flagship model trained by run_training on the card."""
     import numpy as np
     import torch
 
-    from crct_tpu_torch.config import CRCTModelConfig, default_params
-    from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
-    from crct_tpu_torch.data.synthetic import generate_dataset
+    from crct_tpu_torch.config import CRCTModelConfig
+    from crct_tpu_torch.data.dataset import DataLoader
     from crct_tpu_torch.train import train_loop
     from crct_tpu_torch.utils.checkpoint import checkpoint_name
 
@@ -624,18 +894,7 @@ def train(card, attention, failures):
                 "bi_vision_queries": len(cfg.v_biattention_id)}
     with tempfile.TemporaryDirectory(prefix="crct_train_") as root:
         t0 = time.perf_counter()
-        data = generate_dataset(os.path.join(root, "data"),
-                                n_images=TRAIN_IMAGES, division=8,
-                                n_questions=4, feat_dim=1024,
-                                splits=("train",), seed=SEED)
-        params = default_params(
-            figure_feat_path=data["figure_feat_path"],
-            qa_parent_dir=data["qa_parent_dir"], dataset_config=data,
-            model_config=model_config, seed=SEED, batch_size=B_TRAIN,
-            num_epochs=1, num_workers=4, no_eval=True, bf16=True,
-            save_path=os.path.join(root, "results"), max_seq_len=124,
-            max_vis_features=44)
-        dataset = ChartQADataset(params, ["train"])
+        params, dataset = train_data(root)
         say("train", f"synthetic train split of {len(dataset)} items "
                      f"({TRAIN_IMAGES} figures, negatives included) in "
                      f"{time.perf_counter() - t0:.1f} s")
@@ -662,8 +921,8 @@ def train(card, attention, failures):
             trainer = train_loop.run_training(params, dataset, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {name: (attention.LAUNCHES[shape],
-                         attention.BWD_LAUNCHES[shape])
+        counts = {name: (attention.LAUNCHES[("bfloat16", *shape)],
+                         attention.BWD_LAUNCHES[("bfloat16", *shape)])
                   for name, shape in SHAPES.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -736,11 +995,122 @@ def train(card, attention, failures):
         return counts, batch, params
 
 
-def cross_check(attention, batch, params, failures):
-    """Phase 6: one fp32 step from the same weights with dropout on, through
-    K1/K2 and through the plain forward and backward: loss within 1e-5
-    relative, every gradient within 1e-4 of its largest magnitude, the
-    parameters after the update within 1e-6."""
+def cross_attentions(attention):
+    """The attention functions that the bf16 cross-check runs beside the
+    kernels, each step held against the plain one:
+      witness      - the plain forward and the kernels' backward (K1 then K2
+                     on the same inputs): a step that differs from the plain
+                     one by K2 alone, as steps through the earlier CUDA-core
+                     kernels did (their bf16 K1 output equalled the plain
+                     version's);
+      control_p    - the plain formulas with P and dS rounded to bf16 before
+                     the products that take them (P.V, dv, dq, dk);
+      control_mask - the plain formulas with the backward's dropout mask
+                     drawn from another seed;
+      control_draw - the plain formulas with another dropout draw in both
+                     directions.
+    Each is attention_math in fp32 (see CONTROLS)."""
+    import torch
+
+    def keep(q, k, rate, seed):
+        shape = (*q.shape[:3], k.shape[2])
+        return (attention.keep_mask(shape, seed, rate, q.device)
+                if rate > 0.0 else None)
+
+    class Witness(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, rate, seed):
+            ctx.save_for_backward(q, k, v, mask)
+            ctx.rate, ctx.seed = rate, seed
+            with torch.autocast(q.device.type, enabled=False):
+                return attention.attention_reference(q, k, v, mask, rate, seed)
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, mask = ctx.saved_tensors
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            with torch.enable_grad(), torch.autocast(q.device.type,
+                                                     enabled=False):
+                out = attention.fused_attention(*leaves, mask, ctx.rate,
+                                                ctx.seed)
+            return (*torch.autograd.grad(out, leaves, g), None, None, None)
+
+    class Formulas(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, rate, seed, round_p, fwd_shift,
+                    bwd_shift):
+            ctx.save_for_backward(q, k, v, mask)
+            ctx.args = rate, seed, round_p, bwd_shift
+            with torch.autocast(q.device.type, enabled=False):
+                return attention_math(
+                    q.float(), k.float(), v.float(), mask,
+                    keep=keep(q, k, rate, seed + fwd_shift),
+                    round_p=round_p).to(q.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, mask = ctx.saved_tensors
+            rate, seed, round_p, bwd_shift = ctx.args
+            with torch.autocast(q.device.type, enabled=False):
+                _, dq, dk, dv = attention_math(
+                    q.float(), k.float(), v.float(), mask, g.float(),
+                    bwd_keep=keep(q, k, rate, seed + bwd_shift),
+                    round_p=round_p)
+            return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                    *[None] * 6)
+
+    def formulas(rounds, fwd_shift, bwd_shift):
+        return lambda q, k, v, mask, rate=0.0, seed=0: Formulas.apply(
+            q, k, v, mask, rate, seed, bf16_round if rounds else None,
+            fwd_shift, bwd_shift)
+
+    return {"witness": lambda q, k, v, mask, rate=0.0, seed=0: Witness.apply(
+                q, k, v, mask, rate, seed),
+            **{name: formulas(*args) for name, args in CONTROLS.items()}}
+
+
+def step_diff(got, want, noise):
+    """How a train step's (loss, gradients, parameters after the update)
+    differ from the plain step's: the loss's relative difference; each
+    leaf's max |grad - plain grad| over its plain max |grad| and its
+    relative L2 difference, the worst over all leaves and over the leaves
+    apart from key biases (``noise``); the largest parameter difference."""
+    (loss, grads, new), (want_loss, want_grads, want_new) = got, want
+    ratio, l2 = {}, {}
+    for name, g in grads.items():
+        w = want_grads[name].float()
+        d = g.float() - w
+        ratio[name] = (d.abs().max() / w.abs().max().clamp(min=1e-6)).item()
+        l2[name] = (d.norm() / w.norm().clamp(min=1e-12)).item()
+    worst = max(ratio, key=ratio.get)
+    real = max((n for n in ratio if not noise.search(n)), key=ratio.get)
+    real_l2 = max((n for n in l2 if not noise.search(n)), key=l2.get)
+    return {"loss": loss, "plain_loss": want_loss,
+            "loss_rel": abs(loss - want_loss) / abs(want_loss),
+            "grad_all": ratio[worst], "grad_all_of": worst,
+            "grad": ratio[real], "grad_of": real,
+            "grad_l2": l2[real_l2], "grad_l2_of": real_l2,
+            "param": max((p - want_new[n]).abs().max().item()
+                         for n, p in new.items())}
+
+
+def cross_check(attention, batch, params, failures, seeds=(SEED,)):
+    """Phase 6: one train step from the same weights and generator state
+    with dropout on, through K1/K2 and through the plain forward and
+    backward, in fp32 and in bf16 (autocast over fp32 masters, as the
+    train phase runs), for each generator seed. fp32: the limits of
+    FP32_CROSS (loss, every gradient's max |diff| over its largest
+    magnitude, the parameters after the update). bf16: those of BF16_CROSS
+    (loss, the worst leaf's relative L2 gradient difference apart from key
+    biases, whose gradient is zero in exact arithmetic, so that what they
+    get is rounding noise, printed); the update is printed, not held
+    (AdamW's first step moves a parameter by about lr whatever the
+    gradient's size).
+    The bf16 witness and control steps of cross_attentions are held against
+    the plain step too: the controls of MUST_FAIL must fail the limits.
+    Returns the readings."""
+    import re
+
     import torch
 
     from crct_tpu_torch.models import layers
@@ -749,53 +1119,78 @@ def cross_check(attention, batch, params, failures):
     from crct_tpu_torch.train.train_loop import device_batch, make_train_step
 
     db = device_batch(batch, "cuda")
-    pd = dict(params, bf16=False)
+    noise = re.compile(r"\.key\d?\.bias$")
+    others = cross_attentions(attention)
+    readings = []
+    for bf16 in (False, True):
+        pd = dict(params, bf16=bf16)
+        kind = "bf16" if bf16 else "fp32"
+        for seed in seeds:
+            def one_step(fn=None):
+                with mock.patch.object(layers, "fused_attention",
+                                       fn or layers.fused_attention):
+                    model = build_model(pd, device="cuda", train=True)
+                    opt = AdamW(list(model.named_parameters()), pd, 12)
+                    metrics = make_train_step(model, opt)(
+                        db, torch.Generator().manual_seed(seed))
+                grads = {n: p.grad for n, p in model.named_parameters()
+                         if p.grad is not None}
+                new = {n: p.detach() for n, p in model.named_parameters()}
+                return float(metrics[0]), grads, new
 
-    def one_step():
-        model = build_model(pd, device="cuda", train=True)
-        opt = AdamW(list(model.named_parameters()), pd, 12)
-        metrics = make_train_step(model, opt)(
-            db, torch.Generator().manual_seed(SEED))
-        grads = {n: p.grad for n, p in model.named_parameters()
-                 if p.grad is not None}
-        new = {n: p.detach() for n, p in model.named_parameters()}
-        return float(metrics[0]), grads, new
+            attention.reset_launch_count()
+            got = one_step()
+            counts = (attention.launch_count(), attention.bwd_launch_count())
+            want = one_step(attention.plain_attention)
+            after = (attention.launch_count(), attention.bwd_launch_count())
+            if after != counts or min(counts) < 1:
+                failures.append(f"{kind} cross-check: kernel launches "
+                                f"{counts} then {after}")
+            if set(got[1]) != set(want[1]):
+                failures.append(f"{kind} cross-check: different parameters "
+                                f"got gradients")
+            runs = {"kernels": step_diff(got, want, noise)}
+            del got
+            if bf16:
+                for label, fn in others.items():
+                    runs[label] = step_diff(one_step(fn), want, noise)
+            del want
+            torch.cuda.empty_cache()
 
-    attention.reset_launch_count()
-    loss, grads, new = one_step()
-    counts = (attention.launch_count(), attention.bwd_launch_count())
-    with mock.patch.object(layers, "fused_attention",
-                           attention.plain_attention):
-        want_loss, want_grads, want_new = one_step()
-    if (attention.launch_count(), attention.bwd_launch_count()) != counts \
-            or min(counts) < 1:
-        failures.append(f"cross-check: kernel launches {counts} then "
-                        f"{(attention.launch_count(), attention.bwd_launch_count())}")
-    rel = abs(loss - want_loss) / abs(want_loss)
-    if not rel <= 1e-5:
-        failures.append(f"cross-check: loss {loss} vs plain {want_loss}")
-    if set(grads) != set(want_grads):
-        failures.append("cross-check: different parameters got gradients")
-    worst_g, worst_name = 0.0, ""
-    for name, g in grads.items():
-        w = want_grads[name]
-        r = ((g - w).abs().max() / w.abs().max().clamp(min=1e-6)).item()
-        if r > worst_g:
-            worst_g, worst_name = r, name
-    if not worst_g <= 1e-4:
-        failures.append(f"cross-check: gradient of {worst_name} off by "
-                        f"{worst_g} of its largest magnitude")
-    worst_p = max((p - want_new[n]).abs().max().item()
-                  for n, p in new.items())
-    if not worst_p <= 1e-6:
-        failures.append(f"cross-check: parameters after the update differ "
-                        f"by {worst_p}")
-    say("cross", f"one fp32 step at batch {B_TRAIN} with dropout, K1/K2 "
-                 f"({counts[0]} and {counts[1]} launches) against the plain "
-                 f"forward and backward: loss {loss:.6f} vs {want_loss:.6f} "
-                 f"(rel {rel:.2g}, tol 1e-5); worst gradient {worst_name} "
-                 f"off by {worst_g:.2g} of its largest magnitude (tol 1e-4); "
-                 f"parameters after AdamW within {worst_p:.2g} (tol 1e-6)")
+            limits = BF16_CROSS if bf16 else FP32_CROSS
+            r = runs["kernels"]
+            for key, tol in limits.items():
+                if not r[key] <= tol:
+                    failures.append(f"{kind} cross-check: {LIMIT_NAMES[key]} "
+                                    f"{r[key]} > {tol} (loss {r['loss']} vs "
+                                    f"plain {r['plain_loss']}; gradient of "
+                                    f"{r[key + '_of'] if key + '_of' in r else '-'})")
+            for label in MUST_FAIL if bf16 else ():
+                if all(runs[label][key] <= tol for key, tol in limits.items()):
+                    failures.append(f"bf16 cross-check: {label} meets the "
+                                    f"limits: " + ", ".join(
+                                        f"{key} {runs[label][key]}"
+                                        for key in limits))
+            say("cross", f"one {kind} step at batch {B_TRAIN} with dropout, "
+                         f"generator seed {seed}, K1/K2 ({counts[0]} and "
+                         f"{counts[1]} launches) against the plain forward "
+                         f"and backward (loss {r['plain_loss']:.6f}; limits: "
+                         + ", ".join(f"{LIMIT_NAMES[key]} {tol:g}"
+                                     for key, tol in limits.items()) + "): "
+                         + "; ".join(
+                             f"{label}: loss rel {x['loss_rel']:.3g}, worst "
+                             f"gradient {x['grad_all']:.3g} "
+                             f"({x['grad_all_of']}), apart from key biases "
+                             f"{x['grad']:.3g} ({x['grad_of']}), relative L2 "
+                             f"{x['grad_l2']:.3g} ({x['grad_l2_of']}), "
+                             f"parameters after AdamW within {x['param']:.3g}"
+                             for label, x in runs.items()))
+            readings.append({"dtype": kind, "seed": seed, **{
+                label: {key: x[key] for key in
+                        ("loss_rel", "grad_all", "grad_all_of", "grad",
+                         "grad_of", "grad_l2", "grad_l2_of", "param")}
+                for label, x in runs.items()}})
+    return readings
 
 
 def chart_boxes(n, rng):
@@ -1328,7 +1723,94 @@ def detector(card, attention, roi_align, rk, failures):
     return counts
 
 
+def kernel_phase(card, attention, build, roi_align, rk, failures):
+    """Phase 3: every kernel against its plain version, timed; the rows of
+    the kernels' JSON line by (kernel, shape, dtype)."""
+    import torch
+    fwd_rows = {}
+    for kname, shape in SHAPES.items():
+        for row, flops, nbytes, lse_err, rnd in check_kernel(
+                attention, kname, shape, failures):
+            fwd_rows[(kname, row["dtype"])] = row
+            say("kernel", f"K1 {kname} {row['dtype']} (B, H, Lq, Lk, D) = "
+                          f"{(B, *shape)}: max abs err "
+                          f"{row['max_abs_err']:.3g} (tol "
+                          f"{1e-5 if row['dtype'] == 'float32' else 2e-2}), "
+                          f"lse within {lse_err:.3g} of max(1, |lse|) (tol "
+                          f"1e-5); device times: kernel {row['ms']:.4f} ms, plain "
+                          f"{row['plain_ms']:.4f} ms, sdpa "
+                          f"{row['library_ms']:.4f} ms, bound "
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)"
+                          + rounding_note(rnd) + f" ({card})")
+
+    # K2's layout: shared memory, warps (key slabs) and resident blocks per
+    # SM, and the waves of a B_TRAIN * H launch, in fp32 / bf16
+    lib = build.load("attention_bwd")
+    for fn in (lib.attention_bwd_smem, lib.attention_bwd_blocks_per_sm,
+               lib.attention_bwd_key_tile):
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = []
+    for kname, (H, Lq, Lk, D) in SHAPES.items():
+        per_sm = [lib.attention_bwd_blocks_per_sm(Lq, Lk, D, dt)
+                  for dt in (0, 1)]
+        if min(per_sm) < 1:
+            failures.append(f"attention_bwd occupancy of {kname}: {per_sm}")
+            continue
+        occ.append(f"{kname} "
+                   f"{lib.attention_bwd_smem(Lq, Lk, D, 0) / 1024:.1f}/"
+                   f"{lib.attention_bwd_smem(Lq, Lk, D, 1) / 1024:.1f} KB, "
+                   f"{lib.attention_bwd_key_tile(Lq, Lk, D, 0) // 16}/"
+                   f"{lib.attention_bwd_key_tile(Lq, Lk, D, 1) // 16} warps, "
+                   f"{per_sm[0]}/{per_sm[1]} blocks, "
+                   + "/".join(f"{B_TRAIN * H / (n * sms):.2f}"
+                              for n in per_sm) + " waves")
+    say("build", f"attention_bwd per block (fp32/bf16) on {sms} SMs at B = "
+                 f"{B_TRAIN}: " + "; ".join(occ))
+    bwd_rows = {}
+    for kname, shape in SHAPES.items():
+        rows, ident = check_bwd_kernel(attention, kname, shape, failures)
+        for row, flops, nbytes, rnd in rows:
+            bwd_rows[(kname, row["dtype"])] = row
+            say("kernel", f"K2 {kname} {row['dtype']} (B, H, Lq, Lk, D) = "
+                          f"{(B_TRAIN, *shape)}: max abs err "
+                          f"{row['max_abs_err']:.3g} (tol "
+                          f"{1e-5 if row['dtype'] == 'float32' else 2e-2} of "
+                          f"max(1, |grad|)); <out,C> = <v,dv> under dropout "
+                          f"to {ident:.2g} relative; kernel {row['ms']:.4f} "
+                          f"ms, plain {row['plain_ms']:.4f} ms, sdpa backward"
+                          f" {row['library_ms']:.4f} ms (device times),"
+                          f" bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+                          f"{nbytes / 1e6:.1f} MB)" + rounding_note(rnd)
+                          + f" ({card})")
+
+    roi_rows = [check_roi_kernel(roi_align, rk, name, card, failures)
+                for name in ROI_SHAPES]
+    return fwd_rows, bwd_rows, roi_rows
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=HERE,
+                    help="the checkout whose crct_tpu_torch is driven (default:"
+                         " this script's)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated, of {', '.join(PHASES)} and times; "
+                         f"the result line is printed only when all run")
+    ap.add_argument("--seeds", type=int, default=1,
+                    help="generator seeds of each cross-check step")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES) - {"times"}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    whole = set(phases) >= set(PHASES)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
     try:
         import torch
     except ImportError:
@@ -1341,8 +1823,12 @@ def main():
         from crct_tpu_torch.ops import attention, build, roi_align
         from crct_tpu_torch.ops import roi_align_kernel as rk
     except ImportError as exc:
-        print(f"chip_smoke: the port's package is not beside this script "
-              f"({exc})", file=sys.stderr)
+        print(f"chip_smoke: the port's package is not in {tree} ({exc})",
+              file=sys.stderr)
+        return 2
+    if not os.path.abspath(attention.__file__).startswith(tree + os.sep):
+        print(f"chip_smoke: imported {attention.__file__}, not the tree "
+              f"{tree}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1355,7 +1841,7 @@ def main():
                   f"{torch.__version__}, CUDA {torch.version.cuda}; fp32 "
                   f"matmuls without TF32 (matmul.allow_tf32="
                   f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
-                  f"{torch.backends.cudnn.allow_tf32})")
+                  f"{torch.backends.cudnn.allow_tf32}); the port of {tree}")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
@@ -1370,79 +1856,52 @@ def main():
     say("build", f"{len(KERNELS)} kernels built and loaded in "
                  f"{time.perf_counter() - t0:.1f} s")
 
-    kernels = []
-    for kname, shape in SHAPES.items():
-        row, flops, nbytes = check_kernel(attention, kname, shape, failures)
-        kernels.append(row)
-        say("kernel", f"{kname} (B, H, Lq, Lk, D) = {(B, *shape)}: max abs "
-                      f"err fp32 {row['max_abs_err']:.3g} (tol 1e-5), bf16 "
-                      f"{row['max_abs_err_bf16']:.3g} (tol 2e-2); kernel "
-                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                      f"sdpa {row['library_ms']:.4f} ms, bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
-                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
-                      f"({card})")
-
-    smem_of = build.load("attention_bwd").attention_bwd_smem
-    smem_of.argtypes = [ctypes.c_int] * 3
-    smem_of.restype = ctypes.c_int
-    say("build", "attention_bwd dynamic shared memory per block: "
-                 + ", ".join(f"{kname} {smem_of(*shape[1:]) / 1024:.1f} KB"
-                             for kname, shape in SHAPES.items()))
-    # resident blocks per SM (fp32, bf16) and the waves of B_TRAIN * H blocks
-    occupancy = build.load("attention_bwd").attention_bwd_blocks_per_sm
-    occupancy.argtypes = [ctypes.c_int] * 4
-    occupancy.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    occ = []
-    for kname, shape in SHAPES.items():
-        per_sm = [occupancy(*shape[1:], dtype) for dtype in (0, 1)]
-        if min(per_sm) < 1:
-            failures.append(f"attention_bwd occupancy of {kname}: {per_sm}")
-            continue
-        waves = [B_TRAIN * shape[0] / (n * sms) for n in per_sm]
-        occ.append(f"{kname} {per_sm[0]}/{per_sm[1]} blocks, "
-                   f"{waves[0]:.2f}/{waves[1]:.2f} waves")
-    say("build", f"attention_bwd blocks of 8 warps resident per SM "
-                 f"(fp32/bf16) on {sms} SMs at B = {B_TRAIN}: "
-                 + "; ".join(occ))
-    bwd_rows = []
-    for kname, shape in SHAPES.items():
-        row, flops, nbytes, ident = check_bwd_kernel(attention, kname, shape,
-                                                     failures)
-        bwd_rows.append(row)
-        say("kernel", f"K2 {kname} (B, H, Lq, Lk, D) = {(B_TRAIN, *shape)}: "
-                      f"max abs err fp32 {row['max_abs_err']:.3g} (tol 1e-5 "
-                      f"of max(1, |grad|)), bf16 "
-                      f"{row['max_abs_err_bf16']:.3g} (tol 2e-2 of it); "
-                      f"<out,C> = <v,dv> under dropout to {ident:.2g} "
-                      f"relative; kernel {row['ms']:.4f} ms, plain "
-                      f"{row['plain_ms']:.4f} ms, sdpa backward "
-                      f"{row['library_ms']:.4f} ms (fwd+bwd minus fwd), bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
-                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
-                      f"({card})")
-
-    roi_rows = [check_roi_kernel(roi_align, rk, name, card, failures)
-                for name in ROI_SHAPES]
-
-    launches = serve(card, attention, failures)
-    train_counts, batch, params = train(card, attention, failures)
-    cross_check(attention, batch, params, failures)
-    roi_counts = detector(card, attention, roi_align, rk, failures)
-    for row, kname in zip(kernels, SHAPES):
-        row["launches"] = launches[kname]
-        row["train_launches"] = train_counts[kname][0]
-    for row, kname in zip(bwd_rows, SHAPES):
-        row["launches"] = train_counts[kname][1]
-    kernels += bwd_rows
-    for row, shape in zip(roi_rows, ROI_SHAPES):
-        row["launches"] = roi_counts[shape]
-    kernels += roi_rows
+    if "times" in phases:
+        ms = kernel_times(attention)
+        for key, t in ms.items():
+            say("times", f"{key}: K1 {t['fwd']:.4f} ms, K2 {t['bwd']:.4f} ms "
+                         f"({card})")
+        print(json.dumps({"phase": "times", "tree": tree, "card": card,
+                          "ms": ms}), flush=True)
+    if "kernel" in phases:
+        fwd_rows, bwd_rows, roi_rows = kernel_phase(card, attention, build,
+                                                    roi_align, rk, failures)
+    if "serve" in phases:
+        launches = serve(card, attention, failures)
+    batch = None
+    if "train" in phases:
+        train_counts, batch, params = train(card, attention, failures)
+    if "cross" in phases:
+        if batch is None:
+            batch, params = train_batch()
+        readings = cross_check(attention, batch, params, failures,
+                               [SEED + i for i in range(args.seeds)])
+        if not whole:
+            print(json.dumps({"phase": "cross", "tree": tree, "card": card,
+                              "readings": readings}), flush=True)
+    if "detector" in phases:
+        roi_counts = detector(card, attention, roi_align, rk, failures)
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
+    if not whole:
+        return 0
+    # launches in the main paths: fp32 K1 rows count serving's, bf16 rows
+    # the (bf16) training run's; no main path runs K2 in fp32 (the kernel
+    # phase and the fp32 cross-check step do)
+    for (kname, dname), row in fwd_rows.items():
+        row["path"] = "serve" if dname == "float32" else "train"
+        row["launches"] = (launches[kname] if dname == "float32"
+                           else train_counts[kname][0])
+    for (kname, dname), row in bwd_rows.items():
+        row["path"] = "none" if dname == "float32" else "train"
+        row["launches"] = 0 if dname == "float32" else train_counts[kname][1]
+    kernels = list(fwd_rows.values()) + list(bwd_rows.values())
+    for row, shape in zip(roi_rows, ROI_SHAPES):
+        row["path"] = "detector train"
+        row["launches"] = roi_counts[shape]
+    kernels += roi_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,12 +7,12 @@ kernels ``_fwd_kernel`` and ``_bwd_kernel``, reached through
 
     out = (softmax(q k^T / sqrt(D) + mask) * keep / (1 - rate)) v
 
-with fp32 scores, a max-subtracted fp32 softmax and fp32 probabilities
-through P.V, storing the output in the input dtype. Its gradient recomputes
-the probabilities and regenerates the same keep mask (the
-``torch.autograd.Function`` saves q, k, v, the mask, the int seed and the
-rate, never a second draw) and returns dq, dk and dv by the formulas of
-``_bwd_kernel``. For tensors on the card the forward launches the
+with fp32 scores and a max-subtracted fp32 softmax, storing the output in
+the input dtype. Its gradient recomputes the probabilities and regenerates
+the same keep mask (the ``torch.autograd.Function`` saves q, k, v, the
+mask, the int seed and the rate, never a second draw) and returns dq, dk
+and dv by the formulas of ``_bwd_kernel``. For tensors on the card the
+forward launches the
 hand-written kernel ``csrc/attention_fwd.cu`` (K1) and the backward
 ``csrc/attention_bwd.cu`` (K2), with no fallback: what a kernel does not take
 raises. For tensors on the CPU they run :func:`attention_reference` and
@@ -23,17 +23,31 @@ the same int seed ``s`` the port equals
 ``crct_tpu.ops.attention._attention(q, k, v, mask, [[s]], rate, True)`` and
 its VJP.
 
-Bounds on an H100 at the flagship shapes, fp32: the text self-attention
-(H16, D48, 124 x 124) forward at B = 240 rows does ~11.3 GFLOP and moves
-~366 MB a launch, 0.17 ms of fp32 CUDA-core time against 0.11 ms of memory
-time; the backward at B = 80 does 9.4 GFLOP against ~214 MB, 0.14 against
-0.064 ms. Operations bound both. The simple kernels use no tensor cores and
-no TMA.
+The forward also returns the rows' log-sum-exp (fp32 [B, H, Lq]) when a
+gradient will be taken; the Function saves it with the output, and the
+backward takes P = exp(s - lse) from it: one pass, no row statistics pass.
+delta = sum_j dP * P comes from that pass where the keys fit one tile of
+the kernel (ONE_PASS_KEYS, every flagship shape), else from
+sum_d g * out (FlashAttention-2).
+
+Bounds on an H100 at the flagship shapes: the text self-attention (H16,
+D48, 124 x 124) forward at B = 240 rows does ~11.3 GFLOP; it moves ~366 MB
+in fp32 (0.17 ms at the 67 TFLOP/s fp32 rate against 0.11 ms of memory
+time: operations bound it) and ~183 MB in bf16 (0.055 ms of memory time
+against 0.011 ms at 989 TFLOP/s: bytes bound it). The backward at B = 80
+does 9.4 GFLOP against ~214 MB in fp32 (0.14 against 0.064 ms) and ~107 MB
+in bf16 (0.010 against 0.032 ms). Both kernels run every product on the
+tensor cores with mma.sync (``csrc/attention_common.cuh``): 3xTF32 for fp32
+inputs, fp32-accurate; bf16 products for bf16 inputs, where the fp32
+probabilities and score gradients enter split into a bf16 high and low part
+(about 16 significant bits: finer than TF32, so the port still keeps P
+fp32-like through P.V as the JAX Pallas path does; ROADMAP.md section 3).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from collections import Counter
@@ -44,10 +58,14 @@ import torch
 
 MAX_HEAD_DIM = 128
 MAX_KEYS = 1024
+# up to this many keys K2 takes delta = sum_j dP * P from its one pass;
+# above it (several key tiles) delta = sum_d g * out
+ONE_PASS_KEYS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches of K1 (forward) and K2 (backward), keyed by (H, Lq, Lk, D);
-# bumped only where a kernel is launched, never by the plain versions
+# kernel launches of K1 (forward) and K2 (backward), keyed by (dtype name,
+# H, Lq, Lk, D), e.g. ("bfloat16", 16, 124, 124, 48); bumped only where a
+# kernel is launched, never by the plain versions
 _COUNT_LOCK = threading.Lock()
 LAUNCHES: Counter = Counter()
 BWD_LAUNCHES: Counter = Counter()
@@ -129,43 +147,61 @@ def _scale(D: int) -> float:
     return float(np.float32(1.0 / math.sqrt(D)))
 
 
-def _probs(q: torch.Tensor, k: torch.Tensor,
-           additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """[B,H,Lq,Lk] fp32 softmax(q k^T * scale + mask)."""
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B,H,Lq,Lk] fp32 q k^T * scale + mask."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores * _scale(q.shape[-1])
     if additive_mask is not None:
         scores = scores + additive_mask.float()
+    return scores
+
+
+def _softmax(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The max-subtracted fp32 softmax of the scores and their rows'
+    log-sum-exp, [B,H,Lq]."""
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
-    return e / e.sum(dim=-1, keepdim=True)
+    total = e.sum(dim=-1, keepdim=True)
+    return e / total, (m + torch.log(total)).squeeze(-1)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         additive_mask: Optional[torch.Tensor],
-                        dropout_rate: float = 0.0,
-                        seed: int = 0) -> torch.Tensor:
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        return_lse: bool = False):
     """The forward kernel's plain version: the same arguments as
-    :func:`fused_attention` and the same math, in plain torch ops."""
-    probs = _probs(q, k, additive_mask)
+    :func:`fused_attention` and the same math, in plain torch ops. With
+    ``return_lse`` it returns (out, lse), lse the fp32 [B,H,Lq] log-sum-exp
+    of the rows' scores, as the kernel writes it."""
+    probs, lse = _softmax(_scores(q, k, additive_mask))
     if dropout_rate > 0.0:
         probs = probs * keep_mask(tuple(probs.shape), seed, dropout_rate,
                                   probs.device)
-    return torch.matmul(probs, v.float()).to(q.dtype)
+    out = torch.matmul(probs, v.float()).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor,
                             additive_mask: Optional[torch.Tensor],
                             g: torch.Tensor, dropout_rate: float = 0.0,
-                            seed: int = 0
+                            seed: int = 0, lse: Optional[torch.Tensor] = None,
+                            out: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The backward kernel's plain version (the formulas of the JAX
     ``_bwd_kernel``): recompute P, regenerate the forward's keep mask from
     the same seed, and return (dq, dk, dv) for the cotangent ``g`` of the
-    output, in the input dtype."""
-    probs = _probs(q, k, additive_mask)
+    output, in the input dtype. Given the forward's ``lse``, P is
+    exp(s - lse), as the kernel takes it. Given its output ``out`` and more
+    than ONE_PASS_KEYS keys, delta = sum_j dP * P is taken as sum_d g * out,
+    which equals it (out is (P * keep) v), as the kernel does there."""
+    scores = _scores(q, k, additive_mask)
+    if lse is None:
+        probs = _softmax(scores)[0]
+    else:
+        probs = torch.exp(scores - lse.float().unsqueeze(-1))
     gf = g.float()
     dpd = torch.matmul(gf, v.float().transpose(-1, -2))
     if dropout_rate > 0.0:
@@ -174,7 +210,11 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     else:
         probs_d, dp = probs, dpd
     dv = torch.matmul(probs_d.transpose(-1, -2), gf)
-    ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))
+    if out is None or k.shape[2] <= ONE_PASS_KEYS:
+        delta = (dp * probs).sum(dim=-1, keepdim=True)
+    else:
+        delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ds = probs * (dp - delta)
     scale = _scale(q.shape[-1])
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
@@ -218,9 +258,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             .expand(B, 1, Lm, Lk).contiguous())
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel(name: str, n_ptrs: int):
-    """The C entry of ``csrc/<name>.cu``: ``n_ptrs`` pointers, the dtype
-    and six shape ints, scale, rate and keep scale, seed and head block, and
+    """The C entry of ``csrc/<name>.cu``: ``n_ptrs`` pointers (null where
+    an optional one is None), the dtype and six shape ints, scale, rate and keep scale, seed and head block, and
     the stream."""
     from crct_tpu_torch.ops.build import load
     fn = getattr(load(name), name)
@@ -239,77 +280,121 @@ def _scalars(q: torch.Tensor, dropout_rate: float, seed: int):
             float(keep_scale), int(np.int32(seed)), _head_block(q.shape[1]))
 
 
-def _launch(q, k, v, mask, dropout_rate: float, seed: int) -> torch.Tensor:
-    fn = _kernel("attention_fwd", 5)
+def _launch(q, k, v, mask, dropout_rate: float, seed: int,
+            with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1: (out, lse), lse None unless ``with_lse``."""
+    fn = _kernel("attention_fwd", 6)
     B, H, Lq, D = q.shape
     Lk, Lm = k.shape[2], mask.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
+                 out.data_ptr(), lse.data_ptr() if with_lse else None,
+                 _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
                  *_scalars(q, dropout_rate, seed), stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
     with _COUNT_LOCK:
-        LAUNCHES[(H, Lq, Lk, D)] += 1
-    return out
+        LAUNCHES[(str(q.dtype)[6:], H, Lq, Lk, D)] += 1
+    return out, lse
 
 
-def _launch_bwd(q, k, v, mask, g, dropout_rate: float, seed: int
+@functools.lru_cache(maxsize=None)
+def _key_tile(Lq: int, Lk: int, D: int, dtype: torch.dtype) -> int:
+    """Keys per key tile of a K2 launch (above it K2 needs a dq scratch)."""
+    from crct_tpu_torch.ops.build import load
+    fn = load("attention_bwd").attention_bwd_key_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    return fn(Lq, Lk, D, _DTYPES[dtype])
+
+
+def _launch_bwd(q, k, v, mask, g, out, lse, dropout_rate: float, seed: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    fn = _kernel("attention_bwd", 9)
+    """K2 from the forward's output ``out`` and log-sum-exp ``lse``."""
+    fn = _kernel("attention_bwd", 11)
     B, H, Lq, D = q.shape
     Lk, Lm = k.shape[2], mask.shape[2]
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} must match "
-                         f"q {tuple(q.shape)} {q.dtype}")
-    g = g.contiguous()
+    for name, x in (("cotangent", g), ("output", out)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} must match "
+                             f"q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} must be "
+                         f"float32 [{B}, {H}, {Lq}]")
+    g, out, lse = g.contiguous(), out.contiguous(), lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((B, H, Lq, 3), dtype=torch.float32, device=q.device)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if Lk > _key_tile(Lq, Lk, D, q.dtype) else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 stats.data_ptr(), _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
+                 g.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(),
+                 dq_acc.data_ptr() if dq_acc is not None else None,
+                 _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
                  *_scalars(q, dropout_rate, seed), stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
     with _COUNT_LOCK:
-        BWD_LAUNCHES[(H, Lq, Lk, D)] += 1
+        BWD_LAUNCHES[(str(q.dtype)[6:], H, Lq, Lk, D)] += 1
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
     """The counterpart of ``_attention``'s ``custom_vjp``: the forward
-    saves q, k, v, the mask, the int seed and the rate; the backward
-    regenerates the keep mask from that seed. With ``kernels`` the two
-    directions launch K1 and K2, else they run the plain versions. The mask
-    and the seed get no gradient."""
+    saves q, k, v, the mask, the int seed and the rate, and, where a
+    gradient will be taken, its output and the rows' log-sum-exp; the
+    backward regenerates the keep mask from that seed. With ``kernels`` the
+    two directions launch K1 and K2, else they run the plain versions. The
+    mask and the seed get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, dropout_rate: float, seed: int,
                 kernels: bool):
-        ctx.save_for_backward(q, k, v, mask)
         ctx.dropout_rate, ctx.seed, ctx.kernels = dropout_rate, seed, kernels
+        grad = any(ctx.needs_input_grad[:3])
         with torch.autocast(q.device.type, enabled=False):
             if kernels:
-                return _launch(q, k, v, mask, dropout_rate, seed)
-            return attention_reference(q, k, v, mask, dropout_rate, seed)
+                out, lse = _launch(q, k, v, mask, dropout_rate, seed, grad)
+            else:
+                out, lse = attention_reference(q, k, v, mask, dropout_rate,
+                                               seed, return_lse=True)
+        if grad:
+            ctx.save_for_backward(q, k, v, mask, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask = ctx.saved_tensors
+        q, k, v, mask, out, lse = ctx.saved_tensors
         with torch.autocast(q.device.type, enabled=False):
             if ctx.kernels:
-                grads = _launch_bwd(q, k, v, mask, g, ctx.dropout_rate,
-                                    ctx.seed)
+                grads = _launch_bwd(q, k, v, mask, g, out, lse,
+                                    ctx.dropout_rate, ctx.seed)
             else:
                 grads = attention_bwd_reference(q, k, v, mask, g,
-                                                ctx.dropout_rate, ctx.seed)
+                                                ctx.dropout_rate, ctx.seed,
+                                                lse, out)
         return (*grads, None, None, None, None)
+
+
+def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      additive_mask: Optional[torch.Tensor],
+                      dropout_rate: float = 0.0, seed: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of :func:`fused_attention` without a gradient: K1 with
+    its log-sum-exp on CUDA tensors, the plain version on CPU tensors."""
+    mask = _check(q, k, v, additive_mask, dropout_rate, seed)
+    if q.is_cuda:
+        return _launch(q, k, v, mask, dropout_rate, seed, True)
+    return attention_reference(q, k, v, mask, dropout_rate, seed,
+                               return_lse=True)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -130,3 +130,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         kw = dict(dropout_rate=0.1, seed=2 ** 31)
     with pytest.raises((ValueError, TypeError)):
         port.fused_attention(q, k, v, mask, **kw)
+
+
+@pytest.mark.parametrize("full_mask", [False, True], ids=["key_only", "full"])
+def test_plain_lse_matches_numpy_logsumexp(full_mask):
+    """The log-sum-exp the plain forward returns for the backward (what K1
+    writes): fp32 [B, H, Lq], a numpy logsumexp of the fp32 scores in
+    float64; the output is the one without it."""
+    q, k, v, mask = make_qkv(8, full_mask=full_mask)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    out, lse = port.attention_reference(*t, torch.from_numpy(mask), 0.2, 3,
+                                        return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (3, 4, 10)
+    s = (np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k)
+         / np.sqrt(q.shape[-1]) + mask)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(
+        out, port.attention_reference(*t, torch.from_numpy(mask), 0.2, 3),
+        atol=0, rtol=0)
+    got, got_lse = port.attention_forward(*t, torch.from_numpy(mask), 0.2, 3)
+    torch.testing.assert_close(got, out, atol=0, rtol=0)
+    torch.testing.assert_close(got_lse, lse, atol=0, rtol=0)

@@ -141,3 +141,30 @@ def test_mask_gets_no_gradient_and_plain_path_agrees():
     for a, b in zip(t, p):
         torch.testing.assert_close(a.grad, b.grad, atol=0, rtol=0)
     assert port.launch_count() == 0 and port.bwd_launch_count() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Lk", [5, port.ONE_PASS_KEYS + 3],
+                         ids=["one_tile", "several_tiles"])
+def test_plain_backward_with_and_without_lse_and_out(Lk, dtype):
+    """attention_bwd_reference from the forward's (lse, out), as the
+    Function runs it, against recomputing the softmax and delta, under
+    dropout: P = exp(s - lse) equals the softmax, and delta from g . out
+    (above ONE_PASS_KEYS keys, where the kernel takes it so) equals
+    sum_j dP * P because out = (P * keep) v. fp32 within 1e-5, bf16
+    within 2e-2 of the largest gradient (out is rounded to bf16)."""
+    q, k, v, mask, cot = make_case(21, H=6, Lk=Lk, full_mask=True)
+    q, k, v, cot = (torch.from_numpy(x).to(dtype) for x in (q, k, v, cot))
+    mask = torch.from_numpy(mask)
+    out, lse = port.attention_reference(q, k, v, mask, 0.3, 77,
+                                        return_lse=True)
+    want = port.attention_bwd_reference(q, k, v, mask, cot, 0.3, 77)
+    got = port.attention_bwd_reference(q, k, v, mask, cot, 0.3, 77, lse, out)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, **FP32)
+        else:
+            tol = 2e-2 * max(1.0, w.float().abs().max().item())
+            torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=0)

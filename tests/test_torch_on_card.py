@@ -49,11 +49,12 @@ def make_qkv(seed, B, H, Lq, Lk, D, Lm, dtype, device):
 
 
 # (B, H, Lq, Lk, D): the flagship's bi-attention at a small batch, one query
-# row, head counts of head blocks 2 and 1, K/V too large for shared memory
-# (the streamed path of both kernels) and Q/G too large (the streamed second
-# phase of the backward kernel)
+# row, head counts of head blocks 2 and 1, many key tiles (the forward's
+# online softmax, the backward's dq summed over key tiles in its scratch),
+# many query tiles, and more (batch, head) items than the backward's
+# persistent blocks, over several key and query tiles
 SHAPES = [(5, 32, 44, 124, 32), (3, 6, 1, 9, 16), (2, 7, 33, 65, 128),
-          (2, 2, 70, 1000, 128), (1, 2, 1100, 40, 128)]
+          (2, 2, 70, 1000, 128), (1, 2, 1100, 40, 128), (40, 16, 70, 300, 64)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -72,6 +73,30 @@ def test_kernel_matches_plain_on_card(card, shape, dtype):
             assert got.dtype == dtype
             torch.testing.assert_close(got.float(), want.float(),
                                        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_lse_matches_plain_on_card(card, shape, dtype):
+    """The log-sum-exp K1 writes for the backward (fp32 [B, H, Lq]) against
+    the plain one, within 1e-5 of max(1, |lse|) in both dtypes (the scores
+    are fp32 sums of exact or 3xTF32 products), and the output of that
+    launch as in test_kernel_matches_plain_on_card."""
+    B, H, Lq, Lk, D = shape
+    for full in (False, True):
+        q, k, v, mask = make_qkv(10, B, H, Lq, Lk, D, Lq if full else 1,
+                                 dtype, card)
+        before = attention.launch_count()
+        out, lse = attention.attention_forward(q, k, v, mask, 0.1, 5)
+        assert attention.launch_count() == before + 1
+        want, want_lse = attention.attention_reference(q, k, v, mask, 0.1, 5,
+                                                       return_lse=True)
+        assert lse.dtype == torch.float32 and lse.shape == (B, H, Lq)
+        top = max(1.0, want_lse.abs().max().item())
+        torch.testing.assert_close(lse, want_lse, atol=1e-5 * top, rtol=0)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
