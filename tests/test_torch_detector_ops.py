@@ -15,6 +15,11 @@ The same numpy inputs, made from a seed, go through ``crct_tpu.ops``
     2e-5 of max(1, |grad|) in fp32 (the sums run in other orders), 1e-2 of
     it with bf16 maps and cotangents (one bf16 rounding of the output);
   * the autograd backward running K3's wrapper on the forward's geometry;
+  * each roi's footprint (its first lo and last hi corner on each axis),
+    on which K3's tiles skip rois, against the JAX backward's ymin / ymax,
+    and K3's plain version against ``_mlra_backward`` at an odd canvas
+    (800 x 1216) with border, zero-area and one-level boxes (fp32, 2e-5 of
+    max(1, |grad|));
   * anchors, delta coding, matching and the fixed sampler (with the JAX
     noise handed in through the port's one draw function).
 """
@@ -276,6 +281,93 @@ def test_autograd_backward_runs_the_kernel_wrapper(feats_np, monkeypatch):
     want = grads()
     close(got[:4], want[:4], 2e-5)
     assert not got[4].any() and not want[4].any()
+
+
+ODD_SHAPES = [(200, 304), (100, 152), (50, 76), (25, 38)]   # 800 x 1216
+
+
+def odd_canvas_boxes(case):
+    """Boxes on the 800 x 1216 canvas: on and past its border (clamped
+    corners, lo == hi at the last row or column), of zero area (every
+    sample of an axis on one position), or all on one level."""
+    r = np.random.default_rng(17)
+    if case == "border":
+        b = [[-10, -10, 60, 30], [1180, 770, 1230, 810], [0, 0, 1216, 800],
+             [-40, 300, 1300, 360], [1100, -20, 1216, 800],
+             [1215.5, 5, 1216, 790], [3, 795, 400, 800]]
+    elif case == "zero_area":
+        b = [[500, 300, 500, 300], [0, 0, 0, 0], [1216, 800, 1216, 800],
+             [100, 200, 100, 600], [300, 700, 900, 700],
+             [1215.9, 799.9, 1215.9, 799.9]]
+    elif case == "one_level":
+        xy = r.random((12, 2)) * [1000, 600]
+        b = np.concatenate([xy, xy + r.uniform(130, 200, (12, 2))], 1)
+    else:
+        raise ValueError(case)
+    return np.asarray(b, np.float32)
+
+
+FOOTPRINT_CASES = {"chart": lambda: ([(H // s, W // s) for s in STRIDES],
+                                     chart_boxes(37)),
+                   **{c: (lambda c=c: (ODD_SHAPES, odd_canvas_boxes(c)))
+                      for c in ("border", "zero_area", "one_level")}}
+
+
+@pytest.mark.parametrize("case", list(FOOTPRINT_CASES))
+@pytest.mark.parametrize("p", [7, 14])
+def test_roi_footprint_is_the_jax_backwards_extent(case, p):
+    """The footprint K3's tiles test a roi by, [y0[:, 0], y1i[:, -1]] x
+    [x0[:, 0], x1i[:, -1]] of the port's mlra_geometry, equals the JAX
+    backward's ymin / ymax (the min of y0, the max of y1i over the samples;
+    the same for x) from crct_tpu.ops.roi_align._mlra_geometry; it holds
+    every sample corner; and the plain backward is zero outside the union
+    of the footprints on each level: a tile no footprint meets may store
+    zeros."""
+    shapes, b = FOOTPRINT_CASES[case]()
+    geo = roi_align.mlra_geometry(shapes, t(b), *args(p))
+    jgeo = jax_ra._mlra_geometry([np.zeros((h, w, 1), np.float32)
+                                  for h, w in shapes], jnp.asarray(b),
+                                 *args(p))
+    lvl = geo["lvl"].numpy()
+    np.testing.assert_array_equal(lvl, np.asarray(jgeo["lvl"]))
+    for lo, hi in (("y0", "y1i"), ("x0", "x1i")):
+        first, last = geo[lo][:, 0].numpy(), geo[hi][:, -1].numpy()
+        np.testing.assert_array_equal(first, np.asarray(jgeo[lo]).min(1))
+        np.testing.assert_array_equal(last, np.asarray(jgeo[hi]).max(1))
+        for k in (lo, hi):
+            assert (geo[k].numpy() >= first[:, None]).all()
+            assert (geo[k].numpy() <= last[:, None]).all()
+    g = t(np.random.default_rng(5).normal(size=(len(b), p, p, 8))
+          .astype(np.float32))
+    grads = roi_align_kernel.mlra_backward_reference(g, geo, shapes,
+                                                     torch.float32, 2)
+    for lv, (grad, (h, w)) in enumerate(zip(grads, shapes)):
+        inside = torch.zeros(h, w, dtype=torch.bool)
+        for n in np.flatnonzero(lvl == lv):
+            inside[geo["y0"][n, 0]:geo["y1i"][n, -1] + 1,
+                   geo["x0"][n, 0]:geo["x1i"][n, -1] + 1] = True
+        assert not grad[~inside].any(), f"level {lv}"
+        assert grad[inside].any() or not (lvl == lv).any()
+
+
+@pytest.mark.parametrize("case", ["border", "zero_area", "one_level"])
+def test_plain_backward_matches_jax_at_an_odd_canvas(case):
+    """K3's plain version against the JAX einsum VJP at the 800 x 1216
+    canvas, whose levels 200 x 304 ... 25 x 38 end in partial tiles (fp32,
+    2e-5 of max(1, |grad|): the sums run in other orders)."""
+    b = odd_canvas_boxes(case)
+    g = np.random.default_rng(6).normal(size=(len(b), 7, 7, 8)) \
+        .astype(np.float32)
+    feats = [np.zeros((h, w, 8), np.float32) for h, w in ODD_SHAPES]
+    want = _jax_mlra_backward(tuple(jnp.asarray(f) for f in feats),
+                              jnp.asarray(b), jnp.asarray(g), *args(7))
+    geo = roi_align.mlra_geometry(ODD_SHAPES, t(b), *args(7))
+    if case == "one_level":
+        assert len(set(geo["lvl"].tolist())) == 1
+    got = roi_align_kernel.mlra_backward_reference(t(g), geo, ODD_SHAPES,
+                                                   torch.float32, 2)
+    close(got, want, 2e-5)
+    assert any(x.any() for x in got)
 
 
 def test_anchors_and_delta_coding_match_jax():
