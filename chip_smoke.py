@@ -37,12 +37,27 @@ Phases, one line each (any failure exits non-zero):
                encoder's hidden states re-computed through the plain
                attention on the card; where one score() spends its time, on
                the host clock and by kernel under torch.profiler;
-  5. train   - the same model trained by run_training at batch 80 in bf16
+  5. eval    - the same model (random weights saved as a torch
+               checkpoint) evaluated by cli.evaluate.main on a synthetic
+               test split of 16 figures x 4 questions: the full protocol in
+               fp32 (candidate rows/s, questions/s, the tables) beside the
+               same run through the plain attention (per-row NSP
+               probabilities within 1e-4, the same answers apart from
+               counted near-ties), the card's busy share over one loader
+               batch, the full protocol with -bf16; the fast-scorer head
+               trained 40 steps by cli.train_fast_scorer (its CE falls);
+               fast, top-k 8 and top-k 120 eval (top-k 120 rescores every
+               candidate: the full protocol's probabilities and answers);
+               make_server -fast_scorer and -fast_scorer_topk 8 over HTTP
+               answering as those eval runs did; K1's launches on each path;
+  6. train   - the same model trained by run_training at batch 80 in bf16
                with dropout 0.1 on a synthetic train split: step time, QA
                pairs/s, losses, exactly 30 K1 and 30 K2 launches a step, peak
-               memory, a torch.profiler split of one step, and a checkpoint
-               restored with -continue to the same parameters and step;
-  6. cross   - one train step from the same weights with dropout on,
+               memory, a torch.profiler split of one step, the in-train eval
+               on a 16-figure val split after the epoch (timed apart from
+               the steps, its tables), and a checkpoint restored with
+               -continue to the same parameters and step;
+  7. cross   - one train step from the same weights with dropout on,
                through K1/K2 and through the plain forward and backward
                from the same generator state, in fp32 (loss, every gradient
                and the parameters after the AdamW update) and in bf16 (loss
@@ -52,7 +67,7 @@ Phases, one line each (any failure exits non-zero):
                control steps (P and dS rounded to bf16, read; the
                backward's dropout mask from another seed, and another
                dropout draw, both of which the limits must catch);
-  7. detector - the PlotQA Mask R-CNN R50-FPN (25 classes, random weights
+  8. detector - the PlotQA Mask R-CNN R50-FPN (25 classes, random weights
                from a seed, fp32) trained by DetectorTrainer at batch 2 on
                the 1344 x 1344 canvas, fed by detector_batch_iterator over
                bar charts drawn with numpy, with the RoIAlign backward on
@@ -131,7 +146,12 @@ N_BATCH = 8                   # questions in the /v1/answers request
 TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
 KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
-PHASES = ("kernel", "serve", "train", "cross", "detector")
+PHASES = ("kernel", "serve", "eval", "train", "cross", "detector")
+EVAL_IMAGES = 16              # synthetic test (and train) figures x 4
+                              # questions of the eval phase
+FS_STEPS = 40                 # fast-scorer head steps
+N_SERVE_FAST = 8              # questions served by the fast scorer
+VAL_IMAGES = 16               # figures of the in-train eval's val split
 # the detector: the PlotQA Mask R-CNN R50-FPN of crct_tpu.cli.detector_train
 # (1344 canvas, batch 2, 256 sampled rois an image, 64 of them to the mask
 # branch); 25 classes as the JAX package's production detector bench
@@ -783,6 +803,468 @@ def serve(card, attention, failures):
         return launches
 
 
+class EvalRecorder:
+    """What one evaluate() call scored, read off the eval loop as it runs
+    (the wrappers call the real functions and change nothing): the full
+    protocol's per-row NSP probabilities and question offsets of each loader
+    batch (segmented_argmax), the fast head's logits (the fast step's
+    outputs), and top-k's shortlists with their rescored NSP probabilities
+    (shortlist_rescore_rows and the rank step's outputs). Chunk outputs stay
+    on the card until they are read."""
+
+    def __init__(self, eval_loop):
+        self.el = eval_loop
+        self.rank = []          # (values, offsets) per loader batch
+        self.short = []         # top_idx [B, K] per loader batch
+        self.fast_chunks, self.rank_chunks = [], []
+
+    def __enter__(self):
+        el = self.el
+        real_argmax, real_short = el.segmented_argmax, el.shortlist_rescore_rows
+        real_rank, real_fast = el.make_eval_step_dedup, el.make_fast_eval_step_dedup
+
+        def argmax(values, offsets):
+            self.rank.append((values.copy(), offsets.copy()))
+            return real_argmax(values, offsets)
+
+        def short(batch, top_idx, keys=el.ROW_KEYS):
+            self.short.append(top_idx.copy())
+            return real_short(batch, top_idx, keys)
+
+        def wrap(make, sink):
+            def made(model):
+                step = make(model)
+
+                def recorded(*args):
+                    out = step(*args)
+                    sink.append(out[0])
+                    return out
+                return recorded
+            return made
+
+        self._patches = [
+            mock.patch.object(el, "segmented_argmax", argmax),
+            mock.patch.object(el, "shortlist_rescore_rows", short),
+            mock.patch.object(el, "make_eval_step_dedup",
+                              wrap(real_rank, self.rank_chunks)),
+            mock.patch.object(el, "make_fast_eval_step_dedup",
+                              wrap(real_fast, self.fast_chunks))]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+    def full_probs(self):
+        """Per question (in loader order), the NSP probability of each valid
+        candidate: the full protocol's."""
+        return [v[s:e] for v, off in self.rank
+                for s, e in zip(off[:-1], off[1:])]
+
+    def fast_logits(self):
+        """Per question (in loader order), the fast head's logit of each
+        candidate: one chunk of question rows per loader batch, only the
+        last one padded."""
+        out = []
+        for c in self.fast_chunks:
+            out.extend(c.float().cpu().numpy())
+        return out
+
+    def topk_probs(self, chunk):
+        """Per question, {candidate: rescored NSP probability} over its
+        shortlist (B * K rows a loader batch, in chunks of ``chunk``)."""
+        import numpy as np
+        rows = [c.float().cpu().numpy() for c in self.rank_chunks]
+        out, at = [], 0
+        for top in self.short:
+            B, K = top.shape
+            n = -(-B * K // chunk)
+            p = np.concatenate(rows[at:at + n])[:B * K].reshape(B, K)
+            at += n
+            out.extend(dict(zip(t.tolist(), q.tolist()))
+                       for t, q in zip(top, p))
+        return out
+
+
+def compare_answers(got, want, gaps, failures, what, tol=1e-4):
+    """Answers (candidate index per question) of two runs: equal wherever
+    the reference run's two best candidates lie more than ``tol`` apart
+    (``gaps``); returns how many differ at a near-tie."""
+    ties = 0
+    for q, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            if gaps[q] <= tol:
+                ties += 1
+            else:
+                failures.append(f"{what}: question {q} answered {a} "
+                                f"instead of {b} (gap {gaps[q]:.3g})")
+    return ties
+
+
+def top_gap(values):
+    import numpy as np
+    top = np.sort(np.asarray(values))[::-1]
+    return top[0] - top[1] if len(top) > 1 else np.inf
+
+
+def eval_phase(card, attention, failures):
+    """Phase 5: evaluation through cli.evaluate on the flagship model, K1's
+    launches per path, the plain attention's run beside it, the fast scorer
+    trained by cli.train_fast_scorer, fast and top-k eval and serving."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.cli import evaluate as cli_eval
+    from crct_tpu_torch.cli import train_fast_scorer as cli_fs
+    from crct_tpu_torch.config import CRCTModelConfig, default_params
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    from crct_tpu_torch.models import layers
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.serve import make_server
+    from crct_tpu_torch.train import eval_loop
+    from crct_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model_config = os.path.join(HERE, "config", "vilbert.json")
+    cfg = CRCTModelConfig.from_json_file(model_config)
+    per_forward = {"text": cfg.num_hidden_layers,
+                   "vision": cfg.v_num_hidden_layers,
+                   "bi_text_queries": len(cfg.v_biattention_id),
+                   "bi_vision_queries": len(cfg.v_biattention_id)}
+    counts = {}           # path -> {(dtype, shape name): K1 launches}
+
+    def k1_counts():
+        return {(d, n): attention.LAUNCHES[(d, *s)]
+                for n, s in SHAPES.items()
+                for d in ("float32", "bfloat16")}
+
+    def counted(path, fn):
+        before = k1_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = k1_counts()
+        counts[path] = {k: after[k] - before[k] for k in after
+                        if after[k] > before[k]}
+        forwards = {n: c // per_forward[n] for (_, n), c in
+                    counts[path].items() if c % per_forward[n] == 0}
+        if (not counts[path] or len(forwards) != len(per_forward)
+                or len(set(forwards.values())) != 1):
+            failures.append(f"eval: K1 launches on the {path} path "
+                            f"{counts[path]} are not {per_forward} a "
+                            f"forward")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="crct_eval_") as root:
+        data = generate_dataset(os.path.join(root, "data"),
+                                n_images=EVAL_IMAGES, division=4,
+                                n_questions=4, feat_dim=1024,
+                                splits=("train", "test"), seed=SEED)
+        ds_json = os.path.join(root, "ds.json")
+        with open(ds_json, "w") as f:
+            # directories by the logical order train, val, test
+            json.dump(dict(data, main_folder="",
+                           splits=["train", "val", "test"],
+                           save_path=os.path.join(root, "results"),
+                           max_seq_len=124, max_vis_features=44,
+                           categories=228), f)
+        ckpt = os.path.join(root, "random.ckpt")
+        model = build_model(default_params(model_config=model_config,
+                                           seed=SEED), device="cuda")
+        save_checkpoint(ckpt, model.state_dict())
+        del model
+        base = ["-qa_file", "qa_pairs.npy", "-dataset_config", ds_json,
+                "-model_config", model_config, "-seed", str(SEED),
+                "-num_workers", "1", "-eval_set", "test"]
+
+        def evaluate(name, *flags, plain=False):
+            """cli.evaluate.main with the recorder on; the wall time of its
+            evaluate() call (synchronized), its records and its tables."""
+            rec, wall = EvalRecorder(eval_loop), []
+            real = cli_eval.evaluate
+
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+                return out
+            preds = os.path.join(root, f"{name}.jsonl")
+            argv = base + ["-save_name", name, "-predictions_out", preds,
+                           *flags]
+            out = io.StringIO()
+            with rec, mock.patch.object(cli_eval, "evaluate", timed), \
+                    mock.patch.object(
+                        layers, "fused_attention",
+                        attention.attention_reference if plain
+                        else layers.fused_attention), redirect_stdout(out):
+                total, breakdown = cli_eval.main(argv)
+            text = out.getvalue()
+            tables = text[text.rindex("Avg inference time"):]
+            with open(preds) as f:
+                recs = [json.loads(ln) for ln in f]
+            return dict(total=total, seconds=wall[0], rec=rec, recs=recs,
+                        tables=tables.splitlines()[1:])
+
+        # 1. the full protocol in fp32, and the same through the plain
+        # attention
+        full = counted("eval", lambda: evaluate("full"))
+        n_q = int(full["total"][0, 1])
+        rows = sum(int(off[-1]) for _, off in full["rec"].rank)
+        before = attention.launch_count()
+        plain = evaluate("plain", plain=True)
+        if attention.launch_count() != before:
+            failures.append("eval: the plain run launched the kernel")
+        worst = 0.0
+        for (v, off), (w, woff) in zip(full["rec"].rank, plain["rec"].rank):
+            if not np.array_equal(off, woff):
+                failures.append("eval: the plain run batched differently")
+                continue
+            worst = max(worst, float(np.abs(v - w).max()))
+        if not worst <= 1e-4:
+            failures.append(f"eval: per-row NSP probabilities differ by "
+                            f"{worst} > 1e-4 from the plain attention's")
+        fp, pp = full["rec"].full_probs(), plain["rec"].full_probs()
+        ties = compare_answers([int(np.argmax(p)) for p in fp],
+                               [int(np.argmax(p)) for p in pp],
+                               [top_gap(p) for p in pp], failures,
+                               "eval vs plain attention")
+        launches = sum(counts["eval"].values())
+        say("eval", f"cli.evaluate, full protocol, fp32, flagship model "
+                    f"(random weights, seed {SEED}) on {n_q} questions of "
+                    f"{EVAL_IMAGES} synthetic figures: {rows} candidate rows "
+                    f"in {full['seconds']:.3f} s = "
+                    f"{rows / full['seconds']:.1f} rows/s, "
+                    f"{n_q / full['seconds']:.2f} questions/s; {launches} K1 "
+                    f"launches ({launches // sum(per_forward.values())} "
+                    f"forwards of {B} rows); against the "
+                    f"plain attention (its run {plain['seconds']:.3f} s): "
+                    f"per-row NSP probabilities within {worst:.3g} "
+                    f"(tolerance 1e-4), {ties} answers differ at a near-tie "
+                    f"(two best within 1e-4; median gap of the two best "
+                    f"{np.median([top_gap(p) for p in pp]):.3g}) ({card})")
+        for line in full["tables"]:
+            say("eval", line)
+
+        # where one loader batch's time goes
+        params = cli_eval.read_command_line(base + ["-save_name", "prof"])
+        say("eval", eval_profile(cli_eval, eval_loop, params, card))
+
+        # 2. the full protocol with -bf16
+        half = counted("eval -bf16", lambda: evaluate("bf16", "-bf16"))
+        probs = np.concatenate([v for v, _ in half["rec"].rank])
+        if not (np.isfinite(probs).all() and half["total"][0, 1] == n_q):
+            failures.append("eval -bf16: non-finite probabilities or "
+                            "questions missing")
+        same = sum(a["cls_output"] == b["cls_output"]
+                   for a, b in zip(half["recs"], full["recs"]))
+        say("eval", f"cli.evaluate -bf16: {rows} rows in "
+                    f"{half['seconds']:.3f} s = "
+                    f"{rows / half['seconds']:.1f} rows/s, "
+                    f"{n_q / half['seconds']:.2f} questions/s; "
+                    f"{sum(counts['eval -bf16'].values())} bf16 K1 launches; "
+                    f"NSP probabilities finite, in "
+                    f"[{probs.min():.4f}, {probs.max():.4f}]; answers equal "
+                    f"to fp32's for {same}/{n_q} ({card})")
+        for line in half["tables"]:
+            say("eval", line)
+
+        # 3. the fast scorer's head, trained on the frozen backbone
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            fs_ckpt = counted("fast-scorer training", lambda: cli_fs.main(
+                base + ["-save_name", "fs", "-start_checkpoint", ckpt,
+                        "-fs_steps", str(FS_STEPS)]))
+        fs_s = time.perf_counter() - t0
+        ces = [float(ln.rsplit(":", 1)[1]) for ln in
+               out.getvalue().splitlines() if "] CE:" in ln]
+        if not (len(ces) >= 2 and ces[-1] < ces[0]):
+            failures.append(f"train_fast_scorer: CE {ces} did not fall")
+        say("eval", f"cli.train_fast_scorer: {FS_STEPS} head steps on the "
+                    f"frozen backbone in {fs_s:.1f} s (model build and "
+                    f"checkpoint included); CE at the logged steps {ces}; "
+                    f"{sum(counts['fast-scorer training'].values())} K1 "
+                    f"launches ({card})")
+
+        # 4. fast and top-k eval
+        runs = {}
+        for name, flags in (("fast", []), ("top-k 8", ["-fast_scorer_topk",
+                                                        "8"]),
+                            ("top-k 120", ["-fast_scorer_topk", "120"])):
+            runs[name] = counted(name, lambda: evaluate(
+                name.replace(" ", ""), "-fast_scorer", "-start_checkpoint",
+                fs_ckpt, *flags))
+            r = runs[name]
+            say("eval", f"cli.evaluate -fast_scorer"
+                        + (f" -fast_scorer_topk {flags[1]}" if flags else "")
+                        + f": {n_q} questions in {r['seconds']:.3f} s = "
+                        f"{n_q / r['seconds']:.2f} questions/s "
+                        f"({r['seconds'] / full['seconds']:.3f} of the full "
+                        f"protocol's time); {sum(counts[name].values())} K1 "
+                        f"launches; accuracy "
+                        f"{r['total'][4, 0]:.0f}/{r['total'][4, 1]:.0f} "
+                        f"(full protocol {full['total'][4, 0]:.0f}) ({card})")
+        # top-k covering every candidate is the full protocol
+        tk = runs["top-k 120"]["rec"].topk_probs(B)
+        worst = max(abs(t[c] - p[c]) for t, p in zip(tk, fp)
+                    for c in range(len(p)))
+        if not worst <= 1e-4:
+            failures.append(f"top-k 120: NSP probabilities differ by {worst} "
+                            f"> 1e-4 from the full protocol's")
+        ties = compare_answers(
+            [int(np.argmax([t[c] for c in range(len(p))]))
+             for t, p in zip(tk, fp)],
+            [int(np.argmax(p)) for p in fp], [top_gap(p) for p in fp],
+            failures, "top-k 120 vs the full protocol")
+        same = sum(a["cls_output"] == b["cls_output"] for a, b in
+                   zip(runs["top-k 120"]["recs"], full["recs"]))
+        say("eval", f"top-k 120 against the full protocol: rescored NSP "
+                    f"probabilities within {worst:.3g} (tolerance 1e-4), "
+                    f"answers equal for {same}/{n_q}, {ties} differ at a "
+                    f"near-tie")
+
+        # 5. fast and top-k serving over HTTP
+        for name, topk in (("fast", 0), ("top-k 8", 8)):
+            params = default_params(
+                figure_feat_path=data["figure_feat_path"],
+                qa_parent_dir=data["qa_parent_dir"], dataset_config=data,
+                eval_set="test", eval_batch_size=None,
+                model_config=model_config, seed=SEED, port=0,
+                fast_scorer=True, fast_scorer_topk=topk,
+                start_checkpoint=fs_ckpt)
+            serve_fast(card, name, params, runs[name],
+                       [len(p) for p in fp], counted, failures, make_server)
+        torch.cuda.empty_cache()
+        for path, c in counts.items():
+            say("eval", f"K1 launches on the {path} path: " + ", ".join(
+                f"{n} {d} {k}" for (d, n), k in sorted(c.items())))
+    return counts
+
+
+def serve_fast(card, name, params, run, n_cands, counted, failures,
+               make_server):
+    """make_server with -fast_scorer (top-k where params say so) on the
+    head's checkpoint: N_SERVE_FAST known questions in one /v1/answers
+    request. Each answer must be the one evaluate() chose for that question
+    in ``run``, apart from near-ties in that run: its two best fast logits
+    (fast), or its two best rescored NSP probabilities or the shortlist's
+    last logit and the next (top-k), within 1e-4."""
+    import numpy as np
+    server = make_server(params, port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    asked, seen = [], {}
+    for gid, qa in enumerate(server.scorer.dataset.qa["test"][:N_SERVE_FAST]):
+        img = int(qa["image_index"])
+        asked.append((gid, img, seen.get(img, 0)))
+        seen[img] = seen.get(img, 0) + 1
+    try:
+        status, body, ms = counted(f"{name} serving", lambda: post(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/answers",
+            {"questions": [{"image_index": img, "question_id": qi}
+                           for _, img, qi in asked]}))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if status != 200 or len(body.get("answers", [])) != len(asked):
+        failures.append(f"{name} serving: status {status}: {body}")
+        return
+    k = int(params["fast_scorer_topk"])
+    logits = run["rec"].fast_logits()
+    probs = run["rec"].topk_probs(B) if k else None
+    same = ties = 0
+    for (gid, _, _), rec in zip(asked, body["answers"]):
+        want = run["recs"][gid]
+        if want["question_id"] != gid:
+            failures.append(f"{name} serving: records out of order")
+            return
+        if rec["cls_output"] == want["cls_output"]:
+            same += 1
+            continue
+        n = n_cands[gid]
+        fl = np.sort(logits[gid][:n])[::-1]
+        gaps = ([top_gap([p for c, p in probs[gid].items() if c < n]),
+                 fl[k - 1] - fl[k] if n > k else np.inf] if k
+                else [top_gap(fl)])
+        if min(gaps) <= 1e-4:
+            ties += 1
+        else:
+            failures.append(f"{name} serving: {rec['question']!r} answered "
+                            f"{rec['cls_output']!r}, evaluate() chose "
+                            f"{want['cls_output']!r}")
+    say("eval", f"make_server -fast_scorer"
+                + (f" -fast_scorer_topk {k}" if k else "")
+                + f" over HTTP: /v1/answers of {len(asked)} questions in "
+                f"{ms:.1f} ms; answers equal to evaluate()'s for {same}, "
+                f"{ties} differ at a near-tie ({card})")
+
+
+def eval_profile(cli_eval, eval_loop, params, card):
+    """Device time of evaluate() over one loader batch (its questions built
+    in the call, as in a run), from torch.profiler: the card's busy share
+    of the wall time under the profiler, and K1's, the matrix products' and
+    the other kernels' parts of it."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
+    ds = ChartQADataset(params, "test", init_split="test")
+    ds.get_all_answers = True
+    qb = min(eval_loop.resolve_eval_question_batch(params), len(ds))
+    with redirect_stdout(io.StringIO()):
+        model = cli_eval.load_eval_model(params, "cuda")
+
+    def run():
+        loader = DataLoader(ds, qb, shuffle=False, drop_last=False,
+                            num_workers=1, indices=np.arange(qb))
+        eval_loop.evaluate(loader, ds, params, model, csv=False,
+                           log_print=lambda m: None)
+        torch.cuda.synchronize()
+
+    run()                                     # allocator and caches warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"attention_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        low = e.key.lower()
+        if "attention_fwd" in low:
+            groups["attention_fwd"] += ms
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "matmul",
+                                    "nvjet", "cublas")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(groups.values())
+    del model
+    torch.cuda.empty_cache()
+    if busy <= 0:
+        return "device time: not measured (the profiler recorded none)"
+    return (f"device time of evaluate() over one loader batch of {qb} "
+            f"questions (fp32, examples built in the call): busy "
+            f"{busy:.1f} of {wall_ms:.1f} ms wall under the profiler "
+            f"({100 * busy / wall_ms:.1f}%; the host alone "
+            f"{wall_ms - busy:.1f} ms): "
+            + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+                        for g, ms in groups.items()) + f" ({card})")
+
+
 def step_profile(trainer, batch, cfg, card):
     """Device time of one train step by kernel group, from torch.profiler,
     and the busy share of its wall time under the profiler."""
@@ -837,21 +1319,28 @@ def step_profile(trainer, batch, cfg, card):
 
 def train_data(root):
     """run_training's params (the flagship model at batch 80, bf16, dropout,
-    4 loader workers) and the synthetic train split, made under root."""
+    4 loader workers, in-train eval on the val split) and the synthetic
+    train and val splits, made under root."""
     from crct_tpu_torch.config import default_params
     from crct_tpu_torch.data.dataset import ChartQADataset
     from crct_tpu_torch.data.synthetic import generate_dataset
     data = generate_dataset(os.path.join(root, "data"), n_images=TRAIN_IMAGES,
                             division=8, n_questions=4, feat_dim=1024,
                             splits=("train",), seed=SEED)
+    val = generate_dataset(os.path.join(root, "data"), n_images=VAL_IMAGES,
+                           division=8, n_questions=4, feat_dim=1024,
+                           splits=("val",), seed=SEED + 1)
+    data["dataset_files_divisions"].update(val["dataset_files_divisions"])
+    data["splits"] = ["train", "val"]
     params = default_params(
         figure_feat_path=data["figure_feat_path"],
         qa_parent_dir=data["qa_parent_dir"], dataset_config=data,
         model_config=os.path.join(HERE, "config", "vilbert.json"), seed=SEED,
-        batch_size=B_TRAIN, num_epochs=1, num_workers=4, no_eval=True,
-        bf16=True, save_path=os.path.join(root, "results"), max_seq_len=124,
+        batch_size=B_TRAIN, num_epochs=1, num_workers=4, no_eval=False,
+        eval_set="val", eval_batch_size=None, bf16=True,
+        save_path=os.path.join(root, "results"), max_seq_len=124,
         max_vis_features=44)
-    return params, ChartQADataset(params, ["train"])
+    return params, ChartQADataset(params, ["train", "val"])
 
 
 def train_batch():
@@ -865,10 +1354,12 @@ def train_batch():
 
 
 def train(card, attention, failures):
-    """Phase 5: the flagship model trained by run_training on the card."""
+    """Phase 6: the flagship model trained by run_training on the card,
+    with its in-train eval."""
     import numpy as np
     import torch
 
+    from crct_tpu_torch.cli.train import in_train_eval
     from crct_tpu_torch.config import CRCTModelConfig
     from crct_tpu_torch.data.dataset import DataLoader
     from crct_tpu_torch.train import train_loop
@@ -902,14 +1393,36 @@ def train(card, attention, failures):
             metrics.append(m)
             return m
 
+        # in-train eval after the epoch, timed apart from the steps, its
+        # K1 launches counted apart from theirs
+        eval_s, eval_k1, eval_tables = [], {}, []
+
+        def timed_eval(trainer, dataset, epoch_id):
+            torch.cuda.synchronize()
+            before = dict(attention.LAUNCHES)
+            t = time.perf_counter()
+            with mock.patch("crct_tpu_torch.cli.train.log_line",
+                            lambda p, m: eval_tables.append(m)):
+                total = in_train_eval(trainer, dataset, epoch_id)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t)
+            for name, shape in SHAPES.items():
+                key = ("bfloat16", *shape)
+                eval_k1[name] = (attention.LAUNCHES[key]
+                                 - before.get(key, 0))
+            return total
+
         attention.reset_launch_count()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with mock.patch.object(train_loop.Trainer, "run_step", timed_step):
-            trainer = train_loop.run_training(params, dataset, device="cuda")
+            trainer = train_loop.run_training(params, dataset,
+                                              eval_fn=timed_eval,
+                                              device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {name: (attention.LAUNCHES[("bfloat16", *shape)],
+        counts = {name: (attention.LAUNCHES[("bfloat16", *shape)]
+                         - eval_k1.get(name, 0),
                          attention.BWD_LAUNCHES[("bfloat16", *shape)])
                   for name, shape in SHAPES.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -942,6 +1455,21 @@ def train(card, attention, failures):
                      f"{losses[0]:.5f} last {losses[-1]:.5f}; (K1, K2) "
                      f"launches per step {sorted(set(launches))}; peak "
                      f"{peak_gb:.2f} GB allocated ({card})")
+        n_eval = sum(eval_k1.values())
+        if len(eval_s) != 1 or n_eval < 1 or not trainer.model.training:
+            failures.append(f"in-train eval: {len(eval_s)} runs, {n_eval} "
+                            f"K1 launches, model training "
+                            f"{trainer.model.training}")
+        else:
+            say("train", f"in-train eval after the epoch (cli.train."
+                         f"in_train_eval, bf16 autocast over the fp32 "
+                         f"masters, {VAL_IMAGES * 4} val questions, "
+                         f"{params['num_workers']} loader processes): "
+                         f"{eval_s[0]:.2f} s, timed apart from the steps; "
+                         f"{n_eval} bf16 K1 launches; the model back in "
+                         f"training mode ({card})")
+            for line in "\n".join(eval_tables).splitlines():
+                say("train", line)
 
         # the epoch checkpoint, restored with -continue
         path = os.path.join(params["save_path"],
@@ -980,7 +1508,7 @@ def train(card, attention, failures):
         say("train", line)
         del trainer
         torch.cuda.empty_cache()
-        return counts, batch, params
+        return counts, eval_k1, batch, params
 
 
 def cross_attentions(attention):
@@ -1083,7 +1611,7 @@ def step_diff(got, want, noise):
 
 
 def cross_check(attention, batch, params, failures, seeds=(SEED,)):
-    """Phase 6: one train step from the same weights and generator state
+    """Phase 7: one train step from the same weights and generator state
     with dropout on, through K1/K2 and through the plain forward and
     backward, in fp32 and in bf16 (autocast over fp32 masters, as the
     train phase runs), for each generator seed. fp32: the limits of
@@ -1198,13 +1726,15 @@ def chart_boxes(n, rng):
     return np.stack([x0, y0, x0 + w, y0 + h], 1).astype(np.float32)
 
 
-def grid_sampler_call(shapes, geo, g, P, S=2):
+def grid_sampler_call(shapes, geo, g, P, S=2, dtype=None):
     """One aten.grid_sampler_2d_backward per level computing the same
     gradient: the level's sample points (of the forward's geometry ``geo``)
     as an align_corners grid with border padding (which clamps as the
-    RoIAlign sampler does), fed g / S^2 spread over the S x S samples.
-    Returns a function giving [H, W, C] fp32 gradients per level."""
+    RoIAlign sampler does), fed g / S^2 spread over the S x S samples, all
+    in ``dtype`` (fp32 unless given; the grid too, as the op asks).
+    Returns a function giving [H, W, C] gradients per level."""
     import torch
+    dtype = dtype or torch.float32
     C = g.shape[-1]
     calls = []
     for lvl, (H, W) in enumerate(shapes):
@@ -1223,8 +1753,9 @@ def grid_sampler_call(shapes, geo, g, P, S=2):
         go = (g[on].float() / (S * S)).repeat_interleave(S, 1) \
             .repeat_interleave(S, 2)
         go = go.permute(3, 0, 1, 2).reshape(1, C, n * PS, PS).contiguous()
-        calls.append((lvl, go, torch.zeros(1, C, H, W, device=g.device),
-                      grid))
+        calls.append((lvl, go.to(dtype),
+                      torch.zeros(1, C, H, W, device=g.device, dtype=dtype),
+                      grid.to(dtype)))
 
     def run():
         out = [torch.zeros(H, W, C, device=g.device) for H, W in shapes]
@@ -1443,9 +1974,26 @@ def check_roi_kernel(roi_align, rk, name, card, failures):
             g_sub = g[idx].contiguous()
             level_ms[lv] = device_ms(lambda: rk.mlra_backward_kernel(
                 g_sub, sub, shapes, dtype, S))
-        extra, lib = {}, "no library call in bf16"
+        extra, lib = {}, ""
         library_ms = None
-        if dtype == f32:
+        if dtype != f32:
+            # the op's bf16 grid moves the samples (8 bits of [-1, 1]), so
+            # it times the work, not the same function: its error printed
+            try:
+                run_lib, timed_lib = grid_sampler_call(shapes, geo, g, P, S,
+                                                       dtype)
+                err_l = max((a.float() - w.float()).abs().max().item()
+                            for a, w in zip(run_lib(), want))
+                library_ms = device_ms(timed_lib)
+                lib = (f"grid_sampler_2d_backward in bf16 x{len(hit)} "
+                       f"levels {library_ms:.4f} ms (off the plain version "
+                       f"by {err_l:.3g}: its bf16 grid moves the samples)")
+                extra["library_err"] = err_l
+            except RuntimeError as exc:
+                msg = str(exc).strip().splitlines()[0]
+                lib = f"grid_sampler_2d_backward in bf16 not dispatched: {msg}"
+                extra["library_note"] = msg
+        else:
             einsum = roi_align._mlra_backward(g, geo, shapes, dtype, S)
             err_e = max((a - w).abs().max().item()
                         for a, w in zip(einsum, want))
@@ -1669,7 +2217,7 @@ def detector_profile(trainer, batch, card):
 
 
 def detector(card, attention, roi_align, rk, failures):
-    """Phase 7: the PlotQA detector trained by DetectorTrainer on the card
+    """Phase 8: the PlotQA detector trained by DetectorTrainer on the card
     through K3, the backward of every RoIAlign. The trainer, not this
     script, turns TF32 off: the phase starts from PyTorch's defaults."""
     import numpy as np
@@ -2027,9 +2575,12 @@ def main():
                                                     roi_align, rk, failures)
     if "serve" in phases:
         launches = serve(card, attention, failures)
+    if "eval" in phases:
+        eval_counts = eval_phase(card, attention, failures)
     batch = None
     if "train" in phases:
-        train_counts, batch, params = train(card, attention, failures)
+        train_counts, in_train_k1, batch, params = train(card, attention,
+                                                         failures)
     if "cross" in phases:
         if batch is None:
             batch, params = train_batch()
@@ -2046,13 +2597,20 @@ def main():
         return 1
     if not whole:
         return 0
-    # launches in the main paths: fp32 K1 rows count serving's, bf16 rows
-    # the (bf16) training run's; no main path runs K2 in fp32 (the kernel
-    # phase and the fp32 cross-check step do)
+    # launches in the main paths: fp32 K1 rows count serving's and the
+    # eval phase's fp32 paths, bf16 rows the (bf16) training run's, its
+    # in-train eval's and eval -bf16's; no main path runs K2 in fp32 (the
+    # kernel phase and the fp32 cross-check step do)
     for (kname, dname), row in fwd_rows.items():
-        row["path"] = "serve" if dname == "float32" else "train"
-        row["launches"] = (launches[kname] if dname == "float32"
-                           else train_counts[kname][0])
+        paths = {p: c[(dname, kname)] for p, c in eval_counts.items()
+                 if c.get((dname, kname))}
+        if dname == "float32":
+            paths = {"serve": launches[kname], **paths}
+        else:
+            paths = {"train": train_counts[kname][0],
+                     "in-train eval": in_train_k1[kname], **paths}
+        row["path"] = ", ".join(paths)
+        row["launches"] = sum(paths.values())
     for (kname, dname), row in bwd_rows.items():
         row["path"] = "none" if dname == "float32" else "train"
         row["launches"] = 0 if dname == "float32" else train_counts[kname][1]

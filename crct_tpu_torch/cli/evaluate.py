@@ -1,0 +1,105 @@
+"""Full evaluation CLI of the PyTorch port (reference CRCT/evaluation.py).
+
+Evaluates on the card unless ``-device cpu`` is given:
+
+    python -m crct_tpu_torch.cli.evaluate -qa_file qa_pairs_test.npy \\
+        -dataset_config config/plotqa.json -eval_set test \\
+        -start_checkpoint crct.ckpt [-cuda_num N] [-bf16]
+
+``-start_checkpoint`` is a torch file: one of the port's checkpoints or a
+reference ``crct.ckpt``. Resumable: the question ids already in the result
+CSV are left out of the index set and the accumulators reload from their
+snapshots (reference evaluation.py:69-126,146-153). ``-predictions_out
+answers.jsonl`` also writes one JSON record per question (answer,
+cls_output, reg_output, confidence, gt_answer). ``-fast_scorer`` scores
+through the fast-scorer head of a ``cli.train_fast_scorer`` checkpoint, and
+``-fast_scorer_topk K`` rescores its K best candidates with the full model.
+"""
+
+from __future__ import annotations
+
+import json
+import pprint
+
+import numpy as np
+
+from crct_tpu_torch.config import read_command_line
+from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
+from crct_tpu_torch.models.crct import build_model
+from crct_tpu_torch.train.eval_loop import (evaluate, get_prev_done_ids,
+                                            make_histogram_png,
+                                            print_acc_table,
+                                            print_breakdown_table,
+                                            resolve_eval_question_batch)
+from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
+from crct_tpu_torch.utils.device import params_device
+
+
+def load_eval_model(params, device):
+    """The eval model on ``device`` with the weights of
+    ``-start_checkpoint`` (else a deterministic init from ``-seed``)."""
+    model = build_model(params, device=device)
+    if params.get("start_checkpoint"):
+        missing_head = load_weights(
+            model, load_torch_checkpoint(params["start_checkpoint"]))
+        if missing_head:
+            print("WARNING: -fast_scorer, but the checkpoint carries no "
+                  "fast_scorer head: the head is RANDOM. Train one with "
+                  "cli.train_fast_scorer first.", flush=True)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"Model's parameters: {n}")
+    return model
+
+
+def main(argv=None):
+    params = read_command_line(argv)
+    device = params_device(params)
+    pprint.pprint({k: v for k, v in params.items() if k != "dvqa_floats"})
+
+    dataset = ChartQADataset(params, params["eval_set"],
+                             init_split=params["eval_set"])
+    dataset.get_all_answers = True
+
+    done_ids = get_prev_done_ids(params)
+    cont_eval = done_ids is not None
+    indices = None
+    if cont_eval:
+        print("-" * 20, f"Done Ids: {len(done_ids)}", "-" * 20, flush=True)
+        indices = np.array(sorted(set(range(len(dataset)))
+                                  - set(done_ids.tolist())), np.int64)
+
+    loader = DataLoader(dataset, batch_size=resolve_eval_question_batch(params),
+                        shuffle=False, drop_last=False,
+                        num_workers=params.get("num_workers", 8) or 1,
+                        indices=indices)
+    model = load_eval_model(params, device)
+
+    on_predictions = pred_file = None
+    if params.get("predictions_out"):
+        pred_file = open(params["predictions_out"], "a" if cont_eval else "w")
+
+        def on_predictions(recs):
+            for r in recs:
+                pred_file.write(json.dumps(r, default=str) + "\n")
+            pred_file.flush()
+
+    try:
+        total, breakdown, histogram = evaluate(
+            loader, dataset, params, model,
+            progress=params["eval_type"], csv=True, cont_eval=cont_eval,
+            on_predictions=on_predictions)
+    finally:
+        loader.close()
+        if pred_file is not None:
+            pred_file.close()
+
+    print_acc_table(print, total)
+    if "plotqa" in params["dataset"]:
+        print_breakdown_table(params, print, breakdown)
+        make_histogram_png(params, histogram)
+    print("Done evaluation", flush=True)
+    return total, breakdown
+
+
+if __name__ == "__main__":
+    main()

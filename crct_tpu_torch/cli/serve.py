@@ -10,7 +10,8 @@ Usage:
 
 ``-start_checkpoint`` is a torch state dict in the reference layout (a
 reference ``crct.ckpt``); Orbax checkpoints of the JAX package are not read
-yet.
+yet. ``-fast_scorer`` (with ``-fast_scorer_topk K``) serves through the
+fast-scorer head of a ``cli.train_fast_scorer`` checkpoint.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ import threading
 
 from crct_tpu_torch.config import read_command_line
 from crct_tpu_torch.serve import make_server
+from crct_tpu_torch.utils.device import params_device
 
 # flags of the JAX server that would change what the port serves
-NOT_PORTED = ("fast_scorer", "fast_scorer_topk", "serve_detector_weights",
-              "serve_no_dataset", "pallas", "mesh_shape")
+NOT_PORTED = ("serve_detector_weights", "serve_no_dataset", "pallas",
+              "mesh_shape")
 
 
 def main(argv=None):
@@ -32,9 +34,7 @@ def main(argv=None):
         if params.get(flag):
             raise SystemExit(f"-{flag} is not yet ported to the PyTorch "
                              f"server")
-    device = params["device"]
-    if device == "cuda" and params["cuda_num"] >= 0:
-        device = f"cuda:{params['cuda_num']}"
+    device = params_device(params)
     print(f"Loading the model on {device} and warming up...", flush=True)
     server = make_server(params, device=device)
     host, port = server.server_address[:2]

@@ -3,25 +3,82 @@
 Trains on the card unless ``-device cpu`` is given:
 
     python -m crct_tpu_torch.cli.train -qa_file qa_pairs_V1_train.npy \\
-        -dataset_config config/plotqa.json -batch_size 80 -bf16 -no_eval
+        -dataset_config config/plotqa.json -batch_size 80 -bf16
 
-``-cuda_num N`` picks the card. In-train evaluation is not ported yet, so
-``-no_eval`` is required; ``-ddp`` (one process per card) is not ported
-either. ``-start_checkpoint`` takes a torch checkpoint in the reference
-layout: the port's own epoch checkpoints or a reference ``crct.ckpt``.
+``-cuda_num N`` picks the card. After each epoch the model is evaluated on
+at most 500 questions of ``-eval_set`` by the full protocol (``-no_eval``
+skips it); ``-ddp`` (one process per card) is not ported yet. With
+``-fast_scorer`` the trained model has no fast-scorer head, as in the JAX
+trainer: the head trains afterwards (``cli.train_fast_scorer``).
+``-start_checkpoint`` takes a torch checkpoint in the reference layout: the
+port's own epoch checkpoints or a reference ``crct.ckpt``.
 """
 
 from __future__ import annotations
 
 import pprint
 
+import numpy as np
+
 from crct_tpu_torch.config import read_command_line
-from crct_tpu_torch.data.dataset import ChartQADataset
-from crct_tpu_torch.train.train_loop import run_training
-from crct_tpu_torch.utils.device import resolve_device
+from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
+from crct_tpu_torch.train.eval_loop import (evaluate, print_acc_table,
+                                            print_breakdown_table,
+                                            resolve_eval_question_batch)
+from crct_tpu_torch.train.train_loop import _maybe_tensorboard, run_training
+from crct_tpu_torch.utils.device import params_device
+from crct_tpu_torch.utils.logging import log_line
 
 # flags of the JAX trainer whose paths the port does not have yet
-NOT_PORTED = ("ddp", "mesh_shape", "fast_scorer", "pallas")
+NOT_PORTED = ("ddp", "mesh_shape", "pallas")
+
+
+def in_train_eval(trainer, dataset, epoch_id):
+    """<=500-sample validation eval each epoch (reference train.py:294-338),
+    on the training model (scored in eval mode in its compute dtype)."""
+    params = dict(trainer.params_dict)
+    # in-train eval always uses the reference protocol: a training model
+    # has no fast-scorer head
+    params["fast_scorer"] = False
+    dataset.split = params["eval_set"]
+    dataset.get_all_answers = True
+    rng = np.random.default_rng(params.get("seed", 0) + epoch_id)
+    idx = rng.permutation(len(dataset))[:500]
+    loader = DataLoader(dataset, batch_size=resolve_eval_question_batch(params),
+                        shuffle=False, num_workers=params.get("num_workers", 8) or 1,
+                        drop_last=False, indices=idx)
+    try:
+        total, breakdown, _ = evaluate(
+            loader, dataset, params, trainer.model,
+            csv=False, log_print=lambda m: log_line(params, m))
+    finally:
+        loader.close()
+    print_acc_table(lambda m: log_line(params, m), total)
+    if params["dataset"] != "figure_qa":
+        print_breakdown_table(params, lambda m: log_line(params, m), breakdown)
+    dataset.get_all_answers = False
+    _tb_eval_scalars(trainer, params, total, epoch_id)
+    return total
+
+
+def _tb_eval_scalars(trainer, params, total, epoch_id):
+    """Per-epoch eval scalars + hparams (reference train.py:340-350)."""
+    writer = _maybe_tensorboard(params)
+    if writer is None:
+        return
+
+    def frac(row):
+        return float(total[row, 0] / total[row, 1]) if total[row, 1] else 0.0
+    writer.add_scalar("Accuracy/Eval Total Acc", frac(4), epoch_id)
+    writer.add_scalar("Accuracy/Eval Reg Acc", frac(2), epoch_id)
+    writer.add_scalar("Accuracy/Eval nsp Acc", frac(0), epoch_id)
+    hparams = {k: v for k, v in params.items()
+               if isinstance(v, (int, float, str, bool))}
+    try:
+        writer.add_hparams(hparams, {"hparam/Eval_acc": frac(4)})
+    except Exception:
+        pass
+    writer.flush()
 
 
 def main(argv=None):
@@ -30,17 +87,13 @@ def main(argv=None):
         if params.get(flag):
             raise SystemExit(f"-{flag} is not yet ported to the PyTorch "
                              f"trainer")
-    if not params["no_eval"]:
-        raise SystemExit("in-train evaluation is not ported yet (ROADMAP.md "
-                         "§1, slice 4: evaluate() and cli/evaluate.py); "
-                         "pass -no_eval")
-    device = params["device"]
-    if device == "cuda" and params["cuda_num"] >= 0:
-        device = f"cuda:{params['cuda_num']}"
-    device = resolve_device(device)
+    device = params_device(params)
     pprint.pprint({k: v for k, v in params.items() if k != "dvqa_floats"})
-    dataset = ChartQADataset(params, ["train"])
-    return run_training(params, dataset, device=device)
+    splits = ["train"] if params["pretrain"] else ["train", params["eval_set"]]
+    dataset = ChartQADataset(params, splits)
+    return run_training(params, dataset,
+                        eval_fn=None if params["no_eval"] else in_train_eval,
+                        device=device)
 
 
 if __name__ == "__main__":

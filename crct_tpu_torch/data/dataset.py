@@ -101,6 +101,9 @@ class ChartQADataset:
             return self.qa[self._split][idx - orig]
         return self.qa[self._split][idx]
 
+    def get_raw(self, idx: int) -> Dict[str, Any]:
+        return self.get_qa(int(idx))
+
     def get_division(self) -> int:
         return self.params['dataset_config']['dataset_files_divisions'][self._split]
 
@@ -124,12 +127,20 @@ class ChartQADataset:
             fig_feat = self.get_fig_feat(image_id)
         return self.builder.get_possible_answers(fig_feat)
 
+    def get_ans_type(self, qa_ind: int) -> int:
+        return self.builder.get_ans_type(self.get_raw(qa_ind)['answer'])
+
     def __getitem__(self, qa_ind: int) -> Dict[str, Any]:
         qa_pair = self.get_qa(qa_ind)
         fig_feat = self.get_fig_feat(qa_pair['image_index'])
         if self.params['dataset'] == 'figure_qa' and 'test' in self._split:
-            raise NotImplementedError("figure_qa test-split colour mapping is "
-                                      "not ported yet")
+            # rewrite unseen color names via nearest detections (reference
+            # fig_dataloader.py:435-439) on copies of the QA pair and of
+            # the text features
+            from crct_tpu_torch.data.figureqa import ColorMapping
+            qa_pair = dict(qa_pair)
+            fig_feat = self.builder._cow_fig_feat(fig_feat)
+            ColorMapping().feature_replace(self.params, qa_pair, fig_feat)
         negative = self._split == 'train' and qa_ind >= self.orig_len()
         # the epoch is mixed in so negatives/masking resample every epoch
         seed = ((self.params.get('seed', 0) * 1_000_003 + self.epoch * 988_663

@@ -83,6 +83,7 @@ class ExampleBuilder:
             fixed_vocab = list(FIXED_VOCAB_STRUCTURAL)
         fixed_vocab.append(REG_TOKEN)
         self.fixed_vocab = [str(p) for p in fixed_vocab]
+        self.fixed_vocab_lower = [p.lower() for p in self.fixed_vocab]
         self.CLS = tokenizer.cls_id
         self.SEP = tokenizer.sep_id
         self.MASK = tokenizer.mask_id
@@ -599,6 +600,15 @@ class ExampleBuilder:
             'image_target': image_target, 'image_label': image_label,
             'legend_belonging_v': belong,
         }
+
+    def get_ans_type(self, answer: Any) -> int:
+        """0 yes/no, 1 fixed vocab, 2 open vocab (fig_dataloader.py:705-717)."""
+        ans = str(answer).lower()
+        if ans in ('yes', 'no'):
+            return 0
+        if ans in self.fixed_vocab_lower and '_REGS' not in self.params['qa_file']:
+            return 1
+        return 2
 
 
 def pad_first_dim(x: np.ndarray, to: int) -> np.ndarray:

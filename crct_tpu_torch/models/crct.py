@@ -10,6 +10,11 @@ L1, and adds the NSP cross-entropy and the combined loss
 every row and its outputs are masked by ``needs_reg`` (fixed shapes, as in
 the JAX package).
 
+With ``fast_scorer`` the model also holds the light candidate head of
+``models/fast_scorer.py``; a batch that carries ``cand_tokens`` (the fast
+rows of ``train/eval_loop.build_fast_rows``) then gets ``cand_logits``, the
+head's score of every candidate against the fused pooled state.
+
 Mixed precision for training: with a bf16 config and fp32 parameters (what
 ``build_model(train=True)`` gives) the backbone computes under bf16
 autocast, so AdamW updates fp32 masters, as the JAX package keeps
@@ -26,6 +31,7 @@ import torch
 from torch import nn
 
 from crct_tpu_torch.config import DVQA_FLOATS, CRCTModelConfig
+from crct_tpu_torch.models.fast_scorer import FastScorer
 from crct_tpu_torch.models.layers import DropoutRNG, init_weights
 from crct_tpu_torch.models.regressor import CERegressor, HybridRegressor
 from crct_tpu_torch.models.vilbert import (PreTrainingHeads,
@@ -47,6 +53,7 @@ class CRCTOutputs:
     needs_reg: torch.Tensor         # [B] bool
     nsp_loss: Optional[torch.Tensor] = None   # scalar (training)
     loss: Optional[torch.Tensor] = None       # scalar combined (training)
+    cand_logits: Optional[torch.Tensor] = None  # [B, C] fast-scorer scores
 
 
 class CRCTModel(nn.Module):
@@ -56,7 +63,8 @@ class CRCTModel(nn.Module):
                  dataset: str = "plotqa", ce_reg: bool = False,
                  binary_answers: bool = False, tol_margin: float = 0.01,
                  mask_prob_img: float = 0.0, use_l1: bool = False,
-                 nsp_loss_coeff: float = 1.0, reg_loss_coeff: float = 1.0):
+                 nsp_loss_coeff: float = 1.0, reg_loss_coeff: float = 1.0,
+                 fast_scorer: bool = False):
         super().__init__()
         self.config = config
         self.dataset = dataset
@@ -73,18 +81,38 @@ class CRCTModel(nn.Module):
         if self.has_regressor:
             self.regressor = (CERegressor if ce_reg else HybridRegressor)(
                 config.hidden_size, config.v_hidden_size)
+        if fast_scorer:
+            # emb_dim = hidden_size so the head can be warm-started from the
+            # backbone's word embeddings (train/fast_scorer_train.py)
+            self.fast_scorer = FastScorer(
+                config.vocab_size, emb_dim=config.hidden_size,
+                hidden=config.bi_hidden_size)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.config.dtype == "bfloat16"
                 else torch.float32)
 
+    @property
+    def has_fast_scorer(self) -> bool:
+        return hasattr(self, "fast_scorer")
+
     def set_compute_dtype(self) -> "CRCTModel":
-        """Cast the backbone and the NSP head to the config's dtype; the
-        regressor stays fp32, as in the JAX package."""
+        """Cast the backbone, the NSP head and the fast-scorer head to the
+        config's dtype; the regressor stays fp32, as in the JAX package."""
         self.bert.to(self.compute_dtype)
         self.cls.to(self.compute_dtype)
+        if self.has_fast_scorer:
+            self.fast_scorer.to(self.compute_dtype)
         return self
+
+    def autocast(self, device_type: str):
+        """Autocast to the compute dtype where the parameters are fp32
+        masters of a bf16 model (training), else a no-op."""
+        enabled = (self.compute_dtype != torch.float32 and
+                   self.cls.bi_seq_relationship.weight.dtype == torch.float32)
+        return torch.autocast(device_type, dtype=self.compute_dtype,
+                              enabled=enabled)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> CRCTOutputs:
@@ -96,16 +124,25 @@ class CRCTModel(nn.Module):
         if self.training:
             rng = DropoutRNG(generator or torch.default_generator,
                              tokens.device)
-        autocast = (self.compute_dtype != torch.float32 and
-                    self.cls.bi_seq_relationship.weight.dtype == torch.float32)
-        with torch.autocast(tokens.device.type, dtype=self.compute_dtype,
-                            enabled=autocast):
-            t_seq, v_seq, nsp_logits = self._backbone(batch, rng)
+        cand_logits = None
+        with self.autocast(tokens.device.type):
+            t_seq, v_seq, t_pooled, v_pooled = self.encode(batch, rng)
+            nsp_logits = self.cls(t_pooled, v_pooled, rng)
+            if self.has_fast_scorer and "cand_tokens" in batch:
+                # the NSP head's fusion (sum or product), before its
+                # dropout: the fast scorer's question state
+                cand_logits = self.fast_scorer(
+                    self.cls.fuse(t_pooled, v_pooled),
+                    batch["cand_tokens"], batch["cand_valid"])
         with torch.autocast(tokens.device.type, enabled=False):
-            return self._heads(batch, t_seq[:, 0].float(),
-                               v_seq[:, 0].float(), nsp_logits.float())
+            out = self._heads(batch, t_seq[:, 0].float(),
+                              v_seq[:, 0].float(), nsp_logits.float())
+        out.cand_logits = cand_logits
+        return out
 
-    def _backbone(self, batch, rng):
+    def encode(self, batch, rng=None):
+        """The two-stream encoder's sequences and pooled states
+        (t_seq, v_seq, t_pooled, v_pooled) of a batch."""
         dtype = self.compute_dtype
         tokens = batch["tokens"].long()
         token_types = batch["segments"].long()
@@ -122,12 +159,11 @@ class CRCTModel(nn.Module):
                               < seq_len[:, None])
         attention_mask = attention_mask.to(dtype)
 
-        t_seq, v_seq, t_pooled, v_pooled = self.bert(
+        return self.bert(
             tokens, token_types, batch["loc"], attention_mask,
             batch["image_feat"], batch["image_loc"],
             batch["image_target"].long(), batch["image_mask"],
             batch.get("area"), rng)
-        return t_seq, v_seq, self.cls(t_pooled, v_pooled, rng)
 
     def _heads(self, batch, hw_0, hv_0, nsp_logits) -> CRCTOutputs:
         """Regression head on the CLS states (hw_0 text, hv_0 vision),
@@ -225,7 +261,9 @@ def build_model(params: Dict[str, Any],
     """A CRCTModel from a params dict, its weights initialized from a
     ``torch.Generator`` seeded by ``params['seed']``, on ``device``: in eval
     mode with the parameters in the compute dtype, or with ``train`` in
-    training mode with fp32 parameters."""
+    training mode with fp32 parameters. ``-fast_scorer`` adds the fast
+    scorer's head to an eval model only: a training model has none, as in
+    the JAX package, whose training tree is initialized without it."""
     device = resolve_device(device)
     if config is None:
         if params.get("model_config"):
@@ -234,8 +272,6 @@ def build_model(params: Dict[str, Any],
             config = CRCTModelConfig()
     if params.get("bf16"):
         config.dtype = "bfloat16"
-    if params.get("fast_scorer"):
-        raise NotImplementedError("-fast_scorer is not ported yet")
     model = CRCTModel(config, categories=params.get("categories", 228) or 228,
                       dataset=params.get("dataset", "plotqa"),
                       ce_reg=params.get("CE_REG", False),
@@ -244,7 +280,8 @@ def build_model(params: Dict[str, Any],
                       mask_prob_img=params.get("mask_prob_img", 0.0) or 0.0,
                       use_l1=params.get("L1", False),
                       nsp_loss_coeff=params.get("nsp_loss_coeff", 1.0),
-                      reg_loss_coeff=params.get("reg_loss_coeff", 1.0))
+                      reg_loss_coeff=params.get("reg_loss_coeff", 1.0),
+                      fast_scorer=bool(params.get("fast_scorer")) and not train)
     generator = torch.Generator().manual_seed(int(params.get("seed", 0)))
     init_weights(model, generator)
     if train:

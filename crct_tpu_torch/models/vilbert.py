@@ -227,7 +227,10 @@ class PreTrainingHeads(nn.Module):
         self.fusion_method = cfg.fusion_method
         self.bi_seq_relationship = nn.Linear(cfg.bi_hidden_size, 2)
 
+    def fuse(self, t_pooled, v_pooled):
+        return (t_pooled + v_pooled if self.fusion_method == "sum"
+                else t_pooled * v_pooled)
+
     def forward(self, t_pooled, v_pooled, rng=None):
-        pooled = (t_pooled + v_pooled if self.fusion_method == "sum"
-                  else t_pooled * v_pooled)
-        return self.bi_seq_relationship(dropout(self, pooled, 0.1, rng))
+        return self.bi_seq_relationship(
+            dropout(self, self.fuse(t_pooled, v_pooled), 0.1, rng))

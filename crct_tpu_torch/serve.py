@@ -19,10 +19,16 @@ Surfaces:
                                       known question picked by index)
   POST /v1/answers                 -> list of pred dicts, scored as a batch
 
+``-fast_scorer`` serves through the light candidate head (ONE backbone
+pass per question instead of the x120 candidate-row fan-out); adding
+``-fast_scorer_topk K`` rescores the K shortlisted candidates with the full
+model, with the full protocol's candidate-order tie-breaking. It needs a
+checkpoint that carries a trained head (``cli.train_fast_scorer``).
+
 The pred dict mirrors the JAX server's (answer, cls_output, reg_output,
 is_reg, confidence, optional ``top``); ``confidence`` is the model's raw
-per-candidate NSP probability. Fast-scorer serving, figure ingestion and
-data parallelism are not ported yet.
+per-candidate NSP probability (fast-only: the head's softmax over the valid
+candidates). Figure ingestion and data parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,11 +51,14 @@ from crct_tpu_torch.data.example_builder import REG_TOKEN
 from crct_tpu_torch.models.crct import CRCTModel, build_model
 from crct_tpu_torch.train.eval_loop import (EVAL_TEXT_KEYS, EVAL_VIS_KEYS,
                                             _chunk_rows, _flatten_valid_rows,
-                                            make_eval_step,
+                                            build_fast_rows, make_eval_step,
                                             make_eval_step_dedup,
+                                            make_fast_eval_step,
+                                            make_fast_eval_step_dedup,
                                             resolve_eval_chunk,
-                                            segmented_argmax)
-from crct_tpu_torch.utils.convert import load_torch_checkpoint
+                                            segmented_argmax,
+                                            shortlist_rescore_rows)
+from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
 from crct_tpu_torch.utils.device import resolve_device
 
 
@@ -60,21 +69,34 @@ class QAScorer:
     fixed-size dispatches. Runs on ``device`` (the card unless the caller
     asks for the CPU); the model's weights come from ``model``, else from
     ``-start_checkpoint`` (a torch state dict in the reference layout), else
-    a deterministic init seeded by ``-seed``."""
+    a deterministic init seeded by ``-seed``.
+
+    Low-latency modes mirror the eval CLI's (-fast_scorer /
+    -fast_scorer_topk): the light candidate head scores every candidate
+    from ONE backbone pass per question; with top-k the full model rescores
+    only the K shortlisted rows."""
 
     def __init__(self, params: Dict[str, Any], dataset: ChartQADataset,
                  model: Optional[CRCTModel] = None, *, device="cuda"):
-        if params.get("fast_scorer"):
-            raise NotImplementedError("-fast_scorer serving is not ported yet")
         self.params = params
         self.dataset = dataset
         self.device = resolve_device(device)
+        self.fast = bool(params.get("fast_scorer"))
+        self.topk = int(params.get("fast_scorer_topk") or 0) \
+            if self.fast else 0
         if model is None:
             model = build_model(params, device=self.device)
             if params.get("start_checkpoint"):
-                model.load_state_dict(
-                    load_torch_checkpoint(params["start_checkpoint"]),
-                    strict=True)
+                missing_head = load_weights(
+                    model, load_torch_checkpoint(params["start_checkpoint"]))
+                if missing_head:
+                    print("WARNING: -fast_scorer serving, but the "
+                          "checkpoint carries no fast_scorer head: the "
+                          "shortlist head is RANDOM. Train one with "
+                          "cli.train_fast_scorer first.", flush=True)
+        if self.fast and not model.has_fast_scorer:
+            raise ValueError("-fast_scorer serving needs a model with the "
+                             "fast_scorer head")
         self.model = model.to(self.device).eval()
         # transfer-deduplicated dispatch: per-question visual arrays ship
         # once per coalesced batch and are gathered per row on the card
@@ -88,6 +110,14 @@ class QAScorer:
         # so coalesced batches of varying size keep a few shapes
         self.vis_pad = max(1, int(params.get("serve_max_batch", 32)))
         self.chunk = resolve_eval_chunk(params)
+        if self.fast:
+            self.fast_step = (make_fast_eval_step_dedup(self.model)
+                              if self.dedup
+                              else make_fast_eval_step(self.model))
+            # the fast dispatch is sized to the BATCHER cap: a coalesced
+            # batch holds at most serve_max_batch questions, so one fast
+            # dispatch covers it with bounded padding
+            self.qchunk = self.vis_pad
         self.dispatches = 0
         self.served = 0
 
@@ -110,19 +140,21 @@ class QAScorer:
             vis[k] = t.to(self.device)
         return vis
 
-    def _run_chunks(self, rows: Dict[str, np.ndarray], vis=None, qidx=None):
-        """Dispatch rows through the eval step in ``self.chunk``-row pieces;
-        one host fetch per dispatch. Returns the NSP probabilities and the
-        regression outputs of the valid rows. ``vis``/``qidx`` select the
-        dedup signature (text rows + per-question visual arrays + row ->
-        question index)."""
+    def _run_chunks(self, rows: Dict[str, np.ndarray], step=None,
+                    chunk: int = 0, vis=None, qidx=None):
+        """Dispatch rows through a step (default: the full-model eval step
+        at ``self.chunk`` rows) in fixed-size pieces; one host fetch per
+        dispatch. Returns the first two outputs of the valid rows (NSP
+        probabilities or candidate logits, and the regression outputs).
+        ``vis``/``qidx`` select the dedup signature (text rows +
+        per-question visual arrays + row -> question index)."""
+        step = step or self.eval_step
         if qidx is not None:
             rows = dict(rows, _qidx=np.asarray(qidx, np.int64))
         a_list, b_list = [], []
-        for piece, valid in _chunk_rows(rows, self.chunk):
+        for piece, valid in _chunk_rows(rows, chunk or self.chunk):
             q = piece.pop("_qidx", None)
-            out = (self.eval_step(piece, vis, q) if q is not None
-                   else self.eval_step(piece))
+            out = (step(piece, vis, q) if q is not None else step(piece))
             a_list.append(out[0][:valid].float().cpu().numpy())
             b_list.append(out[1][:valid].float().cpu().numpy())
             self.dispatches += 1
@@ -152,7 +184,11 @@ class QAScorer:
                 qa_ind=-1, rng=np.random.default_rng(0)))
             opts_list.append(ds.get_possible_answers(idx, fig_feat))
 
-        per_item = self._score_full(collate(items), top) if items else []
+        per_item: List[Dict[str, Any]] = []
+        if items:
+            batch = collate(items)
+            per_item = (self._score_fast(batch, top) if self.fast
+                        else self._score_full(batch, top))
 
         recs = []
         for i, qa in enumerate(qa_pairs):
@@ -217,6 +253,97 @@ class QAScorer:
                     probs = nsp[offsets[b]:offsets[b + 1]]
                     d["top_pairs"] = [(int(j), float(probs[j])) for j in
                                       np.argsort(-probs, kind="stable")]
+            per.append(d)
+        return per
+
+    def _score_fast(self, batch: Dict[str, Any],
+                    top: int) -> List[Dict[str, Any]]:
+        """-fast_scorer serving: ONE backbone pass per question scores all
+        candidates through the light head (the eval CLI's fast path); with
+        -fast_scorer_topk the full model rescores only the K shortlisted
+        rows."""
+        frows = build_fast_rows(batch)
+        if self.dedup:
+            vis = self._vis_from_batch(batch)
+            nq = len(np.asarray(batch["num_ans"]).reshape(-1))
+            ftext = {k: v for k, v in frows.items()
+                     if k not in EVAL_VIS_KEYS}
+            cand_logits, reg_fast = self._run_chunks(
+                ftext, step=self.fast_step, chunk=self.qchunk, vis=vis,
+                qidx=np.arange(nq, dtype=np.int64))
+        else:
+            cand_logits, reg_fast = self._run_chunks(
+                frows, step=self.fast_step, chunk=self.qchunk)
+        num_ans = np.asarray(batch["num_ans"]).reshape(-1)
+        B, P = cand_logits.shape
+        needs_reg = (np.asarray(batch["needs_reg"])
+                     .reshape(B, -1)[:, 0].astype(bool))
+        cand_valid = frows["cand_valid"] > 0
+
+        if self.topk:
+            K = min(self.topk, P)
+            top_idx = np.argsort(-cand_logits, axis=1,
+                                 kind="stable")[:, :K]
+            if self.dedup:
+                # vis is already on the card from the fast pass above
+                nsp, reg_out = self._run_chunks(
+                    shortlist_rescore_rows(batch, top_idx,
+                                           keys=EVAL_TEXT_KEYS),
+                    vis=vis, chunk=min(self.chunk, self.vis_pad * K),
+                    qidx=np.repeat(np.arange(B, dtype=np.int64), K))
+            else:
+                nsp, reg_out = self._run_chunks(
+                    shortlist_rescore_rows(batch, top_idx))
+            probs = np.where(
+                np.take_along_axis(cand_valid, top_idx, axis=1),
+                nsp[:B * K].reshape(B, K), -np.inf)
+            per = []
+            for b in range(B):
+                d: Dict[str, Any] = {"num_ans": int(num_ans[b]),
+                                     "is_reg": bool(needs_reg[b])}
+                if not np.isfinite(probs[b]).any():
+                    # no valid candidate made the shortlist (a NaN logit
+                    # from a broken checkpoint): the no-candidates record
+                    d["num_ans"] = 0
+                elif num_ans[b] > 0:
+                    # candidate-order tie-breaking, like the full
+                    # protocol's segmented_argmax (first max wins)
+                    corder = np.argsort(top_idx[b], kind="stable")
+                    bk = int(corder[np.argmax(probs[b][corder])])
+                    d["ci"] = int(top_idx[b, bk])
+                    d["conf"] = float(probs[b, bk])
+                    d["reg"] = float(reg_out[b * K + bk])
+                    if top > 0:
+                        row = probs[b][corder]
+                        d["top_pairs"] = [
+                            (int(top_idx[b][corder][k]), float(row[k]))
+                            for k in np.argsort(-row, kind="stable")
+                            if np.isfinite(row[k])]
+                per.append(d)
+            return per
+
+        # fast-only: the head's listwise logits rank candidates; the
+        # regression output comes from the same answer-masked pass (ONE
+        # value per question). confidence = listwise softmax over valid
+        # candidates (NOT the full protocol's per-row NSP probability)
+        per = []
+        for b in range(B):
+            d = {"num_ans": int(num_ans[b]), "is_reg": bool(needs_reg[b])}
+            if num_ans[b] > 0:
+                v = np.where(cand_valid[b], cand_logits[b], -np.inf)
+                e = np.exp(v - v.max())
+                smax = e / max(e.sum(), 1e-30)
+                # masked argmax: evaluate()'s raw argmax for any real head
+                # output (invalid slots carry -1e9), but never a padding
+                # candidate
+                ci = int(np.argmax(v))
+                d["ci"] = ci
+                d["conf"] = float(smax[ci])
+                d["reg"] = float(reg_fast[b])
+                if top > 0:
+                    d["top_pairs"] = [(int(j), float(smax[j]))
+                                      for j in np.argsort(-v, kind="stable")
+                                      [:int(num_ans[b])]]
             per.append(d)
         return per
 

@@ -8,13 +8,14 @@ flax's [in, out] to torch's [out, in]; LayerNorm scale -> weight; Embedding
 embedding -> weight). ``load_torch_checkpoint`` reads a reference
 ``crct.ckpt`` (or a state dict the port saved) into the same layout, with
 the legacy heads the forward never uses dropped. ``CRCTModel.load_state_dict
-(..., strict=True)`` takes either.
+(..., strict=True)`` takes either; a fast-scorer head (``fast_scorer``
+subtree) maps to the ``fast_scorer.*`` keys.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -142,6 +143,20 @@ def flax_to_state_dict(flax_params: Dict[str, Any],
             idx = _PIPE_IDX[int(dname.rsplit("_", 1)[1])]
             linear(f"regressor.{fusion}.{idx}", node)
         linear(f"regressor.{fusion}.6", reg["fusion_out"])
+
+    if "fast_scorer" in flax_params:
+        out.update(fast_scorer_state_dict(flax_params["fast_scorer"]))
+    return out
+
+
+def fast_scorer_state_dict(head: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``FastScorer`` subtree -> the port's ``fast_scorer.*`` keys."""
+    out = {"fast_scorer.cand_embeddings.weight":
+           _tensor(head["cand_embeddings"]["embedding"])}
+    for name in ("cand_proj1", "cand_proj2", "question_proj"):
+        out[f"fast_scorer.{name}.weight"] = \
+            _tensor(head[name]["kernel"]).T.contiguous()
+        out[f"fast_scorer.{name}.bias"] = _tensor(head[name]["bias"])
     return out
 
 
@@ -211,3 +226,23 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     sd = loaded.get("model_state_dict", loaded)
     return strip_reference_keys(
         {k: torch.as_tensor(v) for k, v in sd.items()})
+
+
+FAST_SCORER_PREFIX = "fast_scorer."
+
+
+def load_weights(model: torch.nn.Module,
+                 state_dict: Dict[str, torch.Tensor]) -> List[str]:
+    """Load ``state_dict`` into ``model``, every key of the model required
+    apart from the fast-scorer head's: a backbone-only checkpoint loads
+    into a model with the head (the head keeps its init), and a head in the
+    checkpoint is left out of a model without one. Returns the head keys the
+    checkpoint lacked; any other missing or unexpected key raises."""
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    head = [k for k in missing if k.startswith(FAST_SCORER_PREFIX)]
+    other = ([k for k in missing if not k.startswith(FAST_SCORER_PREFIX)]
+             + [k for k in unexpected
+                if not k.startswith(FAST_SCORER_PREFIX)])
+    if other:
+        raise RuntimeError(f"checkpoint does not fit the model: {other[:8]}")
+    return head

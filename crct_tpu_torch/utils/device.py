@@ -15,3 +15,11 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def params_device(params) -> torch.device:
+    """The device of an entry point's ``-device`` / ``-cuda_num`` flags."""
+    device = params["device"]
+    if device == "cuda" and params["cuda_num"] >= 0:
+        device = f"cuda:{params['cuda_num']}"
+    return resolve_device(device)

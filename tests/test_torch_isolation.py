@@ -1,8 +1,9 @@
 """The port stands alone, and runs on the CPU only when asked.
 
 crct_tpu_torch imports torch and numpy and nothing of JAX or of the JAX
-package, and PIL only inside the functions that decode or draw (the machine
-with the card has none); its entry points run on the card unless the caller
+package, and PIL, pandas, matplotlib and tensorboard only inside the
+functions that need them (the machine with the card has none of the first
+three); its entry points run on the card unless the caller
 passes device="cpu", and with no card they raise instead of carrying on on
 the CPU.
 """
@@ -28,7 +29,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "orbax", "crct_tpu", "PIL"))
+                                            "orbax", "crct_tpu", "PIL",
+                                            "pandas", "matplotlib",
+                                            "tensorboard"))
         assert not bad, bad
         assert "crct_tpu_torch.serve" in names, names
         print(len(names))
@@ -97,3 +100,11 @@ def test_detector_entry_points_default_to_the_card(no_card):
         main(["--annotations", "train.json", "--image-dir", "png"])
     with pytest.raises(RuntimeError, match="no card"):
         DetectorTrainer(num_classes=3, depth=14)
+
+
+def test_eval_entry_points_default_to_the_card(no_card):
+    from crct_tpu_torch.cli.evaluate import main as evaluate
+    from crct_tpu_torch.cli.train_fast_scorer import main as train_fast
+    for main in (evaluate, train_fast):
+        with pytest.raises(RuntimeError, match="no card"):
+            main(["-qa_file", "qa_pairs.npy", "-save_name", "x"])

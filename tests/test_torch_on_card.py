@@ -471,3 +471,99 @@ def test_detector_train_step_goes_through_k3_on_card(card, monkeypatch):
         tol = 1e-4 * max(want[name].abs().max().item(), 1e-6)
         torch.testing.assert_close(gr, want[name], atol=tol, rtol=0,
                                    msg=name)
+
+
+def eval_setup(root, card):
+    """A synthetic test split (4 figures x 3 questions, 32-wide region
+    features) and a small model with a fast-scorer head on the card, its
+    weights drawn at scale 0.3 from a seed: wide enough apart that the
+    kernel's and the plain attention's last-bit differences move no
+    answer."""
+    import dataclasses
+    from crct_tpu_torch.config import default_params
+    from crct_tpu_torch.data.dataset import ChartQADataset
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    data = generate_dataset(str(root / "data"), n_images=4, division=4,
+                            n_questions=3, feat_dim=32, splits=("test",))
+    params = default_params(
+        figure_feat_path=data["figure_feat_path"],
+        qa_parent_dir=data["qa_parent_dir"], dataset_config=data,
+        eval_set="test", eval_batch_size=32, save_path=str(root / "out"))
+    ds = ChartQADataset(params, "test", init_split="test")
+    ds.get_all_answers = True
+    model = CRCTModel(dataclasses.replace(small_config(), vocab_size=30522),
+                      categories=params["categories"], fast_scorer=True)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3
+                    + (1.0 if "LayerNorm" in name else 0.0))
+    return params, ds, model.to(card).eval()
+
+
+def test_fast_eval_step_goes_through_the_kernel_on_card(card, tmp_path):
+    """make_fast_eval_step on the card: one K1 launch per attention block
+    of the one backbone pass, and the candidate logits and regression
+    outputs of the plain attention within 1e-4 of max(1, |plain|)."""
+    from crct_tpu_torch.data.dataset import DataLoader
+    from crct_tpu_torch.train import eval_loop
+    params, ds, model = eval_setup(tmp_path, card)
+    batch = next(iter(DataLoader(ds, 6, shuffle=False, num_workers=1)))
+    rows = eval_loop.build_fast_rows(batch)
+    step = eval_loop.make_fast_eval_step(model)
+    cfg = model.config
+    per_forward = (cfg.num_hidden_layers + cfg.v_num_hidden_layers
+                   + 2 * len(cfg.v_biattention_id))
+    attention.reset_launch_count()
+    got = step(rows)
+    assert attention.launch_count() == per_forward
+    with mock.patch.object(layers, "fused_attention",
+                           attention.attention_reference):
+        want = step(rows)
+    assert attention.launch_count() == per_forward
+    valid = torch.from_numpy(rows["cand_valid"] > 0).to(card)
+    for g, w in ((got[0][valid], want[0][valid]), (got[1], want[1])):
+        tol = 1e-4 * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+
+
+def test_evaluate_goes_through_the_kernel_on_card(card, tmp_path):
+    """evaluate()'s full protocol on the card against the same call with
+    the plain attention: K1 launched, per-row NSP probabilities within
+    1e-4, and the same answers wherever the plain run's two best
+    candidates lie more than 1e-4 apart."""
+    from crct_tpu_torch.data.dataset import DataLoader
+    from crct_tpu_torch.train import eval_loop
+    params, ds, model = eval_setup(tmp_path, card)
+
+    def run():
+        seen, recs = [], []
+        real = eval_loop.segmented_argmax
+
+        def rec(values, offsets):
+            seen.append((values.copy(), offsets.copy()))
+            return real(values, offsets)
+        with mock.patch.object(eval_loop, "segmented_argmax", rec):
+            total, _, _ = eval_loop.evaluate(
+                DataLoader(ds, 5, shuffle=False, drop_last=False,
+                           num_workers=1), ds, params, model, csv=False,
+                on_predictions=recs.extend, log_print=lambda m: None)
+        return total, seen, recs
+
+    attention.reset_launch_count()
+    total, seen, recs = run()
+    launches = attention.launch_count()
+    assert launches > 0
+    with mock.patch.object(layers, "fused_attention",
+                           attention.attention_reference):
+        _, want_seen, want_recs = run()
+    assert attention.launch_count() == launches
+    assert total[0, 1] == len(ds)
+    for (v, off), (w, woff) in zip(seen, want_seen):
+        np.testing.assert_array_equal(off, woff)
+        assert np.abs(v - w).max() <= 1e-4
+        for s, e in zip(woff[:-1], woff[1:]):
+            top = np.sort(w[s:e])[::-1]
+            if len(top) < 2 or top[0] - top[1] > 1e-4:
+                assert np.argmax(v[s:e]) == np.argmax(w[s:e])
+    assert len(recs) == len(want_recs) == len(ds)

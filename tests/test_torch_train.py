@@ -530,9 +530,9 @@ def test_max_checkpoints_keeps_the_newest(data_env, tmp_path):
 
 def test_cli_train_refuses_what_is_not_ported(data_env):
     from crct_tpu_torch.cli.train import main
-    with pytest.raises(SystemExit, match="in-train evaluation"):
+    with pytest.raises(SystemExit, match="-pallas"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-device",
-              "cpu"])
+              "cpu", "-pallas"])
     with pytest.raises(SystemExit, match="-ddp"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval",
               "-ddp", "-dist_url", "tcp://x_1"])
