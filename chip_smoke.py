@@ -81,6 +81,24 @@ Phases, one line each (any failure exits non-zero):
                step, one fp32 step through K3, the einsum backward and K3's
                plain version from the same weights and generator state,
                one --test inference and a checkpoint round trip.
+  9. ingest - the chart-to-answer path: the PlotQA Mask R-CNN R50-FPN
+               (228 classes, random weights from a seed, fp32, TF32 off) in
+               a FigureIngestor on the 832 x 1344 canvas turns 8 numpy-drawn
+               charts into feature records in 'gt' mode (timed: p50 ms a
+               figure, figures/s, the detector's device time against the
+               host's NMS loop, record building and Hungarian matching), and
+               again in 'oracle' mode at a 0.05 score cut with the text
+               classes favoured, so that detections reach the Hungarian
+               oracle; the extraction loop (batched_detect at infer_batch 8,
+               then the records) writes a shard that ChartQADataset reads
+               back equal to the ingested records; a -serve_no_dataset
+               server tokenizing through the native C++ tokenizer takes the
+               records through add_figure and answers free-form questions
+               over HTTP through K1, held against the plain attention
+               (near-ties counted); one chart ingested on the card and on
+               the CPU (the same weights): text_feat equal, the <IMG>
+               feature and the oracle detections within stated tolerances,
+               differences only at ties of the score cut or NMS.
 The line before the last holds the kernels' numbers as JSON, a row for each
 kernel, shape and dtype; the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
@@ -146,7 +164,7 @@ N_BATCH = 8                   # questions in the /v1/answers request
 TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
 KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
-PHASES = ("kernel", "serve", "eval", "train", "cross", "detector")
+PHASES = ("kernel", "serve", "eval", "train", "cross", "detector", "ingest")
 EVAL_IMAGES = 16              # synthetic test (and train) figures x 4
                               # questions of the eval phase
 FS_STEPS = 40                 # fast-scorer head steps
@@ -164,6 +182,23 @@ C_FPN = 256
 ROI_STRIDES = (4, 8, 16, 32)
 # RoIAlign backward calls of a train step: name -> (P, rois per image)
 ROI_SHAPES = {"box": (7, 256), "mask": (14, 64)}
+# the ingest phase: charts drawn at (h, w) sizes that the 832 x 1344 canvas
+# takes at short edge 800 unresized (the card's machine has no PIL to
+# resize with); the PlotQA detector's 228 classes; the oracle pass's score
+# cut and the bias it adds to the classifier's 8 text and axis classes (a
+# random classifier puts every box in a few visual classes, and the
+# Hungarian oracle then never runs)
+INGEST_CANVAS = (832, 1344)
+INGEST_SIZES = ((800, 1067), (800, 1200), (800, 1344), (800, 1000),
+                (800, 1100), (800, 1280), (800, 960), (800, 1150))
+INGEST_CLASSES = 228
+ORACLE_CUT = 0.05
+ORACLE_BIAS = 4.0
+INFER_BATCH = 8
+INGEST_SHORT_EDGE = 800
+FEAT_TOL = 1e-4               # region features: card vs CPU, batch 8 vs 1
+BOX_TOL = 0.05                # px: a detection on two devices is the same
+TIE_TOL = 1e-4                # scores / IoUs this close to a cut are ties
 
 
 def say(phase, msg):
@@ -2422,6 +2457,619 @@ def detector(card, attention, roi_align, rk, failures):
     return counts
 
 
+def ingest_chart(rng, h, w):
+    """One bar chart drawn with numpy at h x w: (the uint8 RGB image, its
+    annotation in the reference schema that get_gt_texts reads, free-form
+    questions about it). Text is drawn as ink boxes of its extent."""
+    import numpy as np
+
+    from crct_tpu_torch.detector.synthetic_charts import WORDS
+    img = np.full((h, w, 3), 255, np.uint8)
+
+    def box(x0, y0, x1, y1, color=(40, 40, 40)):
+        img[int(y0):int(y1), int(x0):int(x1)] = color
+        return {"x": float(x0), "y": float(y0), "w": float(x1 - x0),
+                "h": float(y1 - y0)}
+
+    def text(x, y, s):
+        return box(x, y, x + 9 * len(s), y + 14)
+
+    left, top, right, bottom = 0.15 * w, 0.12 * h, 0.92 * w, 0.82 * h
+    x_rule = box(left, bottom, right, bottom + 3, (0, 0, 0))
+    y_rule = box(left - 3, top, left, bottom, (0, 0, 0))
+    n = int(rng.integers(3, 8))
+    cats = [str(c) for c in rng.choice(WORDS, size=n, replace=False)]
+    y_max = float(rng.choice([10, 100, 1000]))
+    values = np.round(rng.random(n) * y_max, 1)
+    slot = (right - left) / n
+    xticks = []
+    for i, v in enumerate(values):
+        x0 = left + i * slot + slot / 4
+        box(x0, bottom - v / y_max * (bottom - top), x0 + slot / 2, bottom,
+            tuple(int(c) for c in rng.integers(30, 220, 3)))
+        xticks.append(text(x0, bottom + 8, cats[i]))
+    yvals = [f"{y_max * j / 4:g}" for j in range(5)]
+    yticks = [text(left - 12 - 9 * len(t), bottom - j / 4 * (bottom - top) - 7,
+                   t) for j, t in enumerate(yvals)]
+    title = " ".join(str(x) for x in rng.choice(WORDS, size=2))
+    xlabel, ylabel = (str(x) for x in rng.choice(WORDS, size=2))
+    gfi = {
+        "title": {"text": title, "bbox": text(w / 2 - 4.5 * len(title),
+                                              0.04 * h, title)},
+        "x_axis": {"label": {"text": xlabel,
+                             "bbox": text((left + right) / 2, 0.9 * h,
+                                          xlabel)},
+                   "major_labels": {"values": cats * 2,
+                                    "bboxes": xticks * 2},
+                   "rule": {"bbox": x_rule}},
+        "y_axis": {"label": {"text": ylabel,
+                             "bbox": text(0.01 * w, (top + bottom) / 2,
+                                          ylabel)},
+                   "major_labels": {"values": yvals * 2,
+                                    "bboxes": yticks * 2},
+                   "rule": {"bbox": y_rule}}}
+    if rng.random() < 0.5:
+        gfi["legend"] = {"items": [
+            {"label": {"text": c, "bbox": text(right - 120, top + 20 * j, c)}}
+            for j, c in enumerate(cats[:2])]}
+    questions = ["how many bars are there ?",
+                 f"what is the value of {cats[0]} ?",
+                 f"does {cats[-1]} have the highest value ?"]
+    return img, {"type": "vbar", "general_figure_info": gfi,
+                 "models": [{"name": c, "ys": [float(v)]}
+                            for c, v in zip(cats, values)]}, questions
+
+
+def diff_detections(a, b, cut, nms_iou, cap, boundaries=()):
+    """The valid detections of one image on two devices, matched by class
+    and box (within BOX_TOL px). Returns (matched, [(side, score, why)] of
+    the unmatched, max box diff, max score diff of the matched). An
+    unmatched detection is at a tie when its score lies within TIE_TOL of
+    the score cut, or of the lowest kept score when the cap is full, or of
+    a ``boundaries`` score (the proposals' per-level top-k), or when a
+    same-class detection on either side overlaps it at an IoU within
+    TIE_TOL of the NMS threshold, or has its score within TIE_TOL and
+    overlaps it above the threshold (which of the two is kept depends on
+    the last bits). Greedy NMS visits the boxes by falling score, so a box
+    kept or dropped at a tie changes what the boxes after it face: a
+    difference scored below one at a tie counts as after that tie."""
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.ops.nms import iou_matrix
+
+    def valid(o):
+        v = np.asarray(o["valid"], bool)
+        return (np.asarray(o["boxes"])[v], np.asarray(o["scores"])[v],
+                np.asarray(o["classes"])[v])
+
+    (ba, sa, ca), (bb, sb, cb) = valid(a), valid(b)
+    used, pairs = set(), []
+    for i in range(len(ba)):
+        d = np.abs(bb - ba[i]).max(axis=1) if len(bb) else np.zeros(0)
+        for j in np.argsort(d):
+            if d[j] > BOX_TOL:
+                break
+            if j not in used and cb[j] == ca[i]:
+                used.add(j)
+                pairs.append((i, j))
+                break
+    box_diff = max([float(np.abs(ba[i] - bb[j]).max()) for i, j in pairs],
+                   default=0.0)
+    score_diff = max([abs(float(sa[i] - sb[j])) for i, j in pairs],
+                     default=0.0)
+    all_b = np.concatenate([ba, bb])
+    all_s = np.concatenate([sa, sb])
+    all_c = np.concatenate([ca, cb])
+    ious = iou_matrix(torch.from_numpy(all_b), torch.from_numpy(all_b)).numpy()
+    odd = []
+    matched_a = {i for i, _ in pairs}
+    for side, idx in (("a", [i for i in range(len(ba))
+                             if i not in matched_a]),
+                      ("b", [j for j in range(len(bb)) if j not in used])):
+        off = 0 if side == "a" else len(ba)
+        for i in idx:
+            k = off + i
+            s = float(all_s[k])
+            same = [m for m in range(len(all_b))
+                    if m != k and all_c[m] == all_c[k]]
+            why = None
+            if abs(s - cut) <= TIE_TOL:
+                why = "score cut"
+            elif (len(sa) == cap or len(sb) == cap) and \
+                    s <= min(sa.min(initial=1.0), sb.min(initial=1.0)) \
+                    + TIE_TOL:
+                why = "cap"
+            elif any(abs(s - t) <= TIE_TOL for t in boundaries):
+                why = "pre-NMS top-k"
+            elif any(abs(ious[k, m] - nms_iou) <= TIE_TOL for m in same):
+                why = "NMS IoU"
+            elif any(abs(all_s[m] - s) <= TIE_TOL
+                     and ious[k, m] > nms_iou - TIE_TOL for m in same):
+                why = "NMS order"
+            # its nearest box on the other side: IoU and score gap
+            other = range(len(ba), len(all_b)) if side == "a" \
+                else range(len(ba))
+            near = max(other, key=lambda m: ious[k, m], default=None)
+            odd.append((side, s, why, None if near is None else
+                        (float(ious[k, near]), float(all_s[near] - s))))
+    top_tie = max((s for _, s, why, _ in odd if why), default=-np.inf)
+    odd = [(side, s, why or ("after a tie" if s <= top_tie + TIE_TOL
+                             else None), near)
+           for side, s, why, near in odd]
+    return len(pairs), odd, box_diff, score_diff
+
+
+def proposals_of(model, padded):
+    """One padded image's RPN proposals on the model's device, with their
+    scores (detect() keeps none) and each level's pre-NMS top-k boundary
+    score: propose() as MaskRCNN.forward calls it."""
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.detector.rpn import propose
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        p_feats = model.features(torch.from_numpy(padded[None]).to(dev))
+        logits, deltas = model.proposal_generator.rpn_head(p_feats)
+        boxes, scores, valid = propose(
+            [x[0] for x in logits], [x[0] for x in deltas],
+            model.anchors(p_feats), padded.shape[:2],
+            post_nms_topk=model.post_nms_topk_test)
+        edges = [torch.sigmoid(torch.sort(x[0].float(), descending=True)
+                               .values[min(999, x[0].numel() - 1)]).item()
+                 for x in logits]
+    return ({"boxes": boxes.cpu().numpy(), "scores": scores.cpu().numpy(),
+             "valid": valid.cpu().numpy(),
+             "classes": np.zeros(len(boxes), np.int64)}, edges)
+
+
+def card_vs_cpu(model, extract, padded, hw, cut):
+    """One image on the card and on the CPU (a copy of the model): the
+    proposals compared (NMS at 0.7, 512 kept, 1000 a level before it),
+    then the detections of detect() (class-aware NMS at 0.5, 100 kept,
+    the score cut)."""
+    import copy
+    cpu = copy.deepcopy(model).cpu()
+    (pa, ea), (pb, eb) = proposals_of(model, padded), proposals_of(cpu, padded)
+    props = diff_detections(pa, pb, cut=-1.0, nms_iou=0.7,
+                            cap=model.post_nms_topk_test,
+                            boundaries=ea + eb)
+    [(ga, _)] = extract.detect(model, padded[None], [hw])
+    [(gb, _)] = extract.detect(cpu, padded[None], [hw])
+    return cpu, props, diff_detections(ga, gb, cut, 0.5, 100)
+
+
+def same_text(a, b, path="text_feat"):
+    """Exact equality of two text_feat trees; returns the first path that
+    differs, else None."""
+    import numpy as np
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return path
+        return next((p for k in a
+                     if (p := same_text(a[k], b[k], f"{path}.{k}"))), None)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return path
+        return next((p for i, (x, y) in enumerate(zip(a, b))
+                     if (p := same_text(x, y, f"{path}[{i}]"))), None)
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return None if np.array_equal(np.asarray(a), np.asarray(b)) else path
+    return None if a == b else path
+
+
+def record_diff(got, want):
+    """(what differs exactly, the largest vis_feat difference relative to
+    its largest magnitude) of two feature records."""
+    import numpy as np
+    bad = [k for k in ("image_id", "width", "height")
+           if got[k] != want[k]]
+    for k in ("class", "vis_bbox"):
+        if not np.array_equal(got[k], want[k]):
+            bad.append(k)
+    p = same_text(got["text_feat"], want["text_feat"])
+    if p:
+        bad.append(p)
+    gf, wf = np.asarray(got["vis_feat"]), np.asarray(want["vis_feat"])
+    if gf.shape != wf.shape:
+        return bad + ["vis_feat shape"], np.inf
+    return bad, float(np.abs(gf - wf).max()
+                      / max(float(np.abs(wf).max()), 1e-6))
+
+
+def ingest_profile(ingestor, img, ann, mode, card):
+    """Device time of one ingest from torch.profiler against the host's:
+    the wall time, the card's busy time (its kernels), the NMS loops' host
+    time (the detector::nms ranges)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ingestor.ingest(img, 0, annotation=ann, ocr_mode=mode)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.key != "detector::nms") / 1e3
+    nms = [e for e in prof.events()
+           if e.name == "detector::nms" and e.device_type == DeviceType.CPU]
+    return {"wall": wall, "busy": busy,
+            "nms_host": sum(e.cpu_time_total for e in nms) / 1e3,
+            "nms_calls": len(nms)}
+
+
+def ingest_phase(card, attention, failures):
+    """Phase 9: chart images to answers on the card: FigureIngestor in gt
+    and oracle mode, the extraction loop and its shard, a -serve_no_dataset
+    server answering over HTTP through K1 beside the plain attention, one
+    chart on the card against the CPU, the native tokenizer."""
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.config import CRCTModelConfig, default_params
+    from crct_tpu_torch.data.dataset import ChartQADataset
+    from crct_tpu_torch.data.native import (NativeWordPieceTokenizer,
+                                            write_vocab_file)
+    from crct_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                               load_tokenizer)
+    from crct_tpu_torch.detector import extract
+    from crct_tpu_torch.ingest import FigureIngestor, IngestError
+    from crct_tpu_torch.models import layers
+    from crct_tpu_torch.serve import make_server
+
+    t_phase = time.perf_counter()
+    model_config = os.path.join(HERE, "config", "vilbert.json")
+    cfg = CRCTModelConfig.from_json_file(model_config)
+    per_forward = {"text": cfg.num_hidden_layers,
+                   "vision": cfg.v_num_hidden_layers,
+                   "bi_text_queries": len(cfg.v_biattention_id),
+                   "bi_vision_queries": len(cfg.v_biattention_id)}
+    rng = np.random.default_rng(SEED)
+    charts = [ingest_chart(rng, h, w) for h, w in INGEST_SIZES]
+    for img, _, _ in charts:
+        h, w = img.shape[:2]
+        if extract.resize_shortest_edge(h, w, INGEST_SHORT_EDGE,
+                                        INGEST_CANVAS) != (h, w):
+            failures.append(f"ingest: a {h} x {w} chart would be resized")
+            return {}
+    _, cls_dict = extract.get_nonvis_ids("plotqa")
+
+    with tempfile.TemporaryDirectory(prefix="crct_ingest_") as root:
+        # the native tokenizer, as load_tokenizer returns it for a vocab
+        # file, against the Python tokenizer on the charts' text
+        py_tok = WordPieceTokenizer.synthetic()
+        vocab = write_vocab_file(py_tok.vocab, os.path.join(root, "vocab.txt"))
+        t0 = time.perf_counter()
+        tok = load_tokenizer(vocab)
+        tok_s = time.perf_counter() - t0
+        texts = [q for _, _, qs in charts for q in qs]
+        for _, ann, _ in charts:
+            gt = extract.get_gt_texts(ann, cls_dict, "plotqa")
+            texts.extend(str(t) for t in gt["text"])
+        chars = list("abcdefghijklmnopqrstuvwxyz0123456789 .,!?-_%()é")
+        texts += ["".join(rng.choice(chars, size=int(rng.integers(0, 60))))
+                  for _ in range(200)]
+        if not isinstance(tok, NativeWordPieceTokenizer):
+            failures.append(f"ingest: load_tokenizer returned "
+                            f"{type(tok).__name__}, not the native one")
+        bad = [t for t in texts if tok.encode(t) != py_tok.encode(t)]
+        if bad:
+            failures.append(f"ingest: native ids differ for {bad[:3]}")
+        say("ingest", f"load_tokenizer({os.path.basename(vocab)}) -> "
+                      f"{type(tok).__name__} (g++ build and load "
+                      f"{tok_s:.2f} s); ids equal to the Python tokenizer's "
+                      f"on {len(texts) - len(bad)}/{len(texts)} texts")
+
+        # the detector, random weights from the seed, in an ingestor
+        torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+        t0 = time.perf_counter()
+        model, mean, std = extract.detector_from_weights(
+            "none", dataset="plotqa", num_classes=INGEST_CLASSES,
+            canvas=INGEST_CANVAS, seed=SEED, device="cuda")
+        ingestor = FigureIngestor(model, dataset="plotqa",
+                                  canvas=INGEST_CANVAS,
+                                  short_edge=INGEST_SHORT_EDGE,
+                                  pixel_mean=mean, pixel_std=std)
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+            failures.append("ingest: FigureIngestor left TF32 on")
+        ingestor.warmup()
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        say("ingest", f"Mask R-CNN R50-FPN ({n_params / 1e6:.1f} M "
+                      f"parameters, {INGEST_CLASSES} classes, fp32, TF32 "
+                      f"off) built and warmed up (one detect) in "
+                      f"{time.perf_counter() - t0:.1f} s on the "
+                      f"{INGEST_CANVAS[0]} x {INGEST_CANVAS[1]} canvas")
+
+        # host time of the record building and of the Hungarian matching,
+        # read off the extraction module as it runs
+        host = {"record": 0.0, "hungarian": 0.0, "oracle_in": [],
+                "oracle_out": []}
+
+        def timed(fn, key):
+            def run(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                host[key] += time.perf_counter() - t
+                if key == "hungarian":
+                    host["oracle_in"].append(len(a[0]["bboxes"]))
+                    host["oracle_out"].append(len(out["text"]))
+                return out
+            return run
+
+        # 1. the main path: gt-mode ingestion, then the answers over HTTP
+        attention.reset_launch_count()
+        gt_recs, gt_ms = [], []
+        with mock.patch.object(extract, "build_feature_record",
+                               timed(extract.build_feature_record, "record")):
+            for i, (img, ann, _) in enumerate(charts):
+                t0 = time.perf_counter()
+                gt_recs.append(ingestor.ingest(img, i, annotation=ann,
+                                               ocr_mode="gt"))
+                gt_ms.append((time.perf_counter() - t0) * 1e3)
+        gt_record_ms = host["record"] * 1e3 / len(charts)
+        for i, rec in enumerate(gt_recs):
+            f = rec["vis_feat"]
+            if not (rec["class"][0] == 1000 and f.shape[1] == 1024
+                    and np.isfinite(f).all()
+                    and (rec["height"], rec["width"])
+                    == charts[i][0].shape[:2]):
+                failures.append(f"ingest: gt record {i}: classes "
+                                f"{rec['class']}, vis_feat {f.shape}")
+        n_gt_vis = sum(len(r["class"]) - 1 for r in gt_recs)
+        say("ingest", f"FigureIngestor.ingest, 'gt' mode, {len(charts)} "
+                      f"charts of {INGEST_SIZES[0][0]} x "
+                      f"{min(w for _, w in INGEST_SIZES)}.."
+                      f"{max(w for _, w in INGEST_SIZES)} (no resize): per "
+                      f"figure ms "
+                      f"{', '.join(f'{x:.1f}' for x in gt_ms)}; p50 "
+                      f"{np.median(gt_ms):.2f} ms, "
+                      f"{len(charts) / sum(gt_ms) * 1e3:.2f} figures/s "
+                      f"(one at a time); record building "
+                      f"{gt_record_ms:.2f} ms a figure on the host; "
+                      f"{n_gt_vis} detections above the 0.5 cut, the "
+                      f"records' visual rows are the <IMG> token "
+                      f"otherwise ({card})")
+
+        params = default_params(
+            serve_no_dataset=True, eval_set="test", eval_batch_size=None,
+            model_config=model_config, seed=SEED, port=0, vocab_file=vocab)
+        t0 = time.perf_counter()
+        server = make_server(params, port=0, device="cuda")
+        scorer = server.scorer
+        if not isinstance(scorer.dataset.tokenizer, NativeWordPieceTokenizer):
+            failures.append("ingest: the server does not tokenize through "
+                            "the native tokenizer")
+        for rec in gt_recs:
+            scorer.add_figure(rec)
+        say("ingest", f"make_server -serve_no_dataset (flagship model, "
+                      f"fp32, vocab file -> native tokenizer) built in "
+                      f"{time.perf_counter() - t0:.1f} s; "
+                      f"{len(scorer.figs)} records added")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        asked = [{"image_index": i, "question": q, "top": 1000}
+                 for i, (_, _, qs) in enumerate(charts) for q in qs]
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(N_CONCURRENT) as pool:
+                replies = list(pool.map(
+                    lambda q: post(base + "/v1/answer", q), asked))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {name: attention.LAUNCHES[("float32", *shape)]
+                        for name, shape in SHAPES.items()}
+            total = attention.launch_count()
+            forwards = scorer.dispatches
+            with urllib.request.urlopen(base + "/v1/figures",
+                                        timeout=60) as resp:
+                listing = json.loads(resp.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        if listing != {"ingested": list(range(len(charts))),
+                       "ingest_enabled": False}:
+            failures.append(f"ingest: GET /v1/figures gave {listing}")
+        for st, rec, _ in replies:
+            if st != 200:
+                failures.append(f"ingest /v1/answer status {st}: {rec}")
+            check_rec(rec, failures, "ingest /v1/answer")
+        if forwards < 1 or total != sum(per_forward.values()) * forwards:
+            failures.append(f"ingest: {total} K1 launches for {forwards} "
+                            f"model forwards, want "
+                            f"{sum(per_forward.values())} per forward")
+        for name, n in launches.items():
+            if n != per_forward[name] * forwards:
+                failures.append(f"ingest {name}: {n} launches for "
+                                f"{forwards} forwards")
+        lat = np.asarray([r[2] for r in replies])
+        say("ingest", f"{len(asked)} free-form questions about the "
+                      f"{len(charts)} ingested figures over POST /v1/answer "
+                      f"({N_CONCURRENT} concurrent) in {wall:.3f} s: "
+                      f"{len(asked) / wall:.2f} q/s, latency p50 "
+                      f"{np.percentile(lat, 50):.1f} ms p95 "
+                      f"{np.percentile(lat, 95):.1f} ms; {forwards} model "
+                      f"forwards, {total} K1 launches ({card})")
+        # the same questions, the same server, through the plain attention
+        qas = [{"question_string": q["question"],
+                "image_index": q["image_index"], "answer": None,
+                "qid": None, "type": "dot"} for q in asked]
+        before = attention.launch_count()
+        with mock.patch.object(layers, "fused_attention",
+                               attention.attention_reference):
+            plain_recs = scorer.score(qas, top=1000)
+        if attention.launch_count() != before:
+            failures.append("ingest: the plain re-score launched K1")
+        worst, ties = compare_scoring([r[1] for r in replies], plain_recs,
+                                      failures)
+        say("ingest", f"the answers over HTTP against the same server's "
+                      f"through the plain attention: max NSP probability "
+                      f"diff {worst:.3g} (tolerance 1e-4), {ties} answers "
+                      f"differ at a near-tie (two best within 1e-4)")
+
+        # 2. 'oracle' mode: the text classes favoured, a low score cut;
+        # scipy's import (the Hungarian solver) is paid once, not timed
+        import scipy.optimize  # noqa: F401
+        cls = model.roi_heads.box_predictor.cls_score
+        bias = cls.bias.detach().clone()
+        with torch.no_grad():
+            cls.bias[:8] += ORACLE_BIAS
+        model.score_thresh_test = ORACLE_CUT
+        oracle_recs, empty, or_ms = [], 0, []
+        host.update(record=0.0, hungarian=0.0)
+        with mock.patch.object(extract, "build_feature_record",
+                               timed(extract.build_feature_record, "record")), \
+                mock.patch.object(extract, "ocr_oracle",
+                                  timed(extract.ocr_oracle, "hungarian")):
+            for i, (img, ann, _) in enumerate(charts):
+                t0 = time.perf_counter()
+                try:
+                    oracle_recs.append(ingestor.ingest(
+                        img, 100 + i, annotation=ann, ocr_mode="oracle"))
+                except IngestError:
+                    empty += 1
+                or_ms.append((time.perf_counter() - t0) * 1e3)
+        if not sum(host["oracle_in"]):
+            failures.append("ingest: no detection reached the Hungarian "
+                            "oracle")
+        n_vis = sum(len(r["class"]) - 1 for r in oracle_recs)
+        say("ingest", f"'oracle' mode (score cut {ORACLE_CUT}, the 8 text "
+                      f"and axis classes' bias +{ORACLE_BIAS}): "
+                      f"{len(oracle_recs)} records, {empty} charts with no "
+                      f"text detection (IngestError); text detections into "
+                      f"the Hungarian oracle per chart {host['oracle_in']}, "
+                      f"GT texts attached {host['oracle_out']}; "
+                      f"{n_vis} visual detections; p50 "
+                      f"{np.median(or_ms):.2f} ms a figure; record building "
+                      f"{host['record'] * 1e3 / len(charts):.2f} ms a figure "
+                      f"on the host, of which Hungarian matching "
+                      f"{host['hungarian'] * 1e3 / len(charts):.3f} ms "
+                      f"({card})")
+        for mode, prof in (("oracle", ingest_profile(
+                ingestor, charts[0][0], charts[0][1], "oracle", card)),):
+            say("ingest", f"one '{mode}' ingest under torch.profiler: wall "
+                          f"{prof['wall']:.2f} ms, the card busy "
+                          f"{prof['busy']:.2f} ms "
+                          f"({100 * prof['busy'] / prof['wall']:.1f}%); "
+                          f"the {prof['nms_calls']} NMS loops (proposals "
+                          f"and detections) {prof['nms_host']:.2f} ms of "
+                          f"host time ({card})")
+
+        # 3. one chart on the card against the CPU, same weights
+        img0, ann0, _ = charts[0]
+        padded, hw = extract.pad_image(img0.astype(np.float32),
+                                       INGEST_CANVAS, INGEST_SHORT_EDGE,
+                                       mean, std)
+        t0 = time.perf_counter()
+        cpu, props, dets = card_vs_cpu(model, extract, padded, hw,
+                                       ORACLE_CUT)
+        cpu_s = time.perf_counter() - t0
+        ties = {}
+        for name, (matched, odd, bdiff, sdiff) in (("proposals", props),
+                                                   ("detections", dets)):
+            why = [w for _, _, w, _ in odd]
+            ties[name] = (len(why) - why.count(None), why.count(None))
+            say("ingest", f"chart 0, 'oracle' settings, card vs CPU "
+                          f"{name}: {matched} equal (boxes within "
+                          f"{bdiff:.3g} px, scores within {sdiff:.3g}), "
+                          f"{len(odd)} differ, of which at a tie "
+                          f"{ties[name][0]} ({', '.join(sorted(set(w for w in why if w))) or '-'}), "
+                          f"unexplained {ties[name][1]}"
+                          + "".join(f"; {side} score {sc:.6f}, nearest "
+                                    f"other IoU {n[0]:.4f} score gap "
+                                    f"{n[1]:.3g}" for side, sc, w, n
+                                    in odd if w is None and n)[:600])
+        # detections downstream of a proposal that differs at a tie may
+        # differ in any way; otherwise each difference must sit at a tie
+        if ties["detections"][1] and not props[1]:
+            failures.append(f"ingest: {ties['detections'][1]} detections "
+                            f"differ between the card and the CPU away "
+                            f"from a tie")
+        if ties["proposals"][1]:
+            failures.append(f"ingest: {ties['proposals'][1]} proposals "
+                            f"differ between the card and the CPU away "
+                            f"from a tie")
+        # the gt record of chart 0 on the CPU: text_feat exactly equal
+        with torch.no_grad():
+            cls.bias.copy_(bias)
+        model.score_thresh_test = 0.5
+        cpu.roi_heads.box_predictor.cls_score.bias.data.copy_(bias.cpu())
+        cpu.score_thresh_test = 0.5
+        cpu_ing = FigureIngestor(cpu, dataset="plotqa", canvas=INGEST_CANVAS,
+                                 short_edge=INGEST_SHORT_EDGE,
+                                 pixel_mean=mean, pixel_std=std)
+        cpu_rec = cpu_ing.ingest(img0, 0, annotation=ann0, ocr_mode="gt")
+        bad, err = record_diff(cpu_rec, gt_recs[0])
+        if bad or not err <= FEAT_TOL:
+            failures.append(f"ingest: chart 0's gt record on the CPU "
+                            f"differs from the card's in {bad}, vis_feat "
+                            f"by {err:.3g} (tolerance {FEAT_TOL})")
+        say("ingest", f"chart 0, 'gt' mode, the port on the CPU (same "
+                      f"weights, TF32 off; {cpu_s:.1f} s for the oracle "
+                      f"detect on both devices): text_feat, classes and "
+                      f"boxes {'equal' if not bad else bad}, the <IMG> "
+                      f"feature within {err:.3g} of its largest magnitude "
+                      f"(tolerance {FEAT_TOL})")
+        del cpu, cpu_ing
+
+        # 4. the extraction loop: batched_detect, records, a shard that
+        # ChartQADataset reads back
+        feat_root = os.path.join(root, "feat", "test")
+        qa_root = os.path.join(root, "qa", "test")
+        os.makedirs(feat_root)
+        os.makedirs(qa_root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        padded, hws = zip(*[extract.pad_image(img.astype(np.float32),
+                                              INGEST_CANVAS,
+                                              INGEST_SHORT_EDGE, mean, std)
+                            for img, _, _ in charts])
+        dets = extract.batched_detect(model, list(padded), INFER_BATCH,
+                                      list(hws))
+        records = [extract.record_from_detection(
+            i, out, feat, img.shape[:2], hw, dataset="plotqa",
+            gt_texts=extract.get_gt_texts(ann, cls_dict, "plotqa"),
+            ocr_mode="gt")
+            for i, ((out, feat), (img, ann, _), hw)
+            in enumerate(zip(dets, charts, hws))]
+        np.save(os.path.join(feat_root, "0.npy"),
+                np.asarray(records, dtype=object), allow_pickle=True)
+        ext_s = time.perf_counter() - t0
+        np.save(os.path.join(qa_root, "qa_pairs.npy"), np.asarray(
+            [dict(q, qid="S1", answer=1) for q in qas], dtype=object),
+            allow_pickle=True)
+        ds = ChartQADataset(default_params(
+            figure_feat_path=os.path.join(root, "feat", ""),
+            qa_parent_dir=os.path.join(root, "qa", ""),
+            dataset_config={"dataset_files_divisions": {"test": 8}},
+            eval_set="test", vocab_file=vocab), "test", init_split="test")
+        worst = 0.0
+        for i, rec in enumerate(gt_recs):
+            bad, err = record_diff(ds.get_fig_feat(i), rec)
+            worst = max(worst, err)
+            if bad or not err <= FEAT_TOL:
+                failures.append(f"ingest: the shard's record {i} differs "
+                                f"from the ingested one in {bad}, vis_feat "
+                                f"by {err:.3g}")
+        say("ingest", f"extraction: batched_detect at infer_batch "
+                      f"{INFER_BATCH} and the records of {len(charts)} charts "
+                      f"in {ext_s:.3f} s = {len(charts) / ext_s:.2f} "
+                      f"images/s (normalize and pad included, no PNG "
+                      f"decode); ChartQADataset.get_fig_feat reads the shard "
+                      f"back equal to the ingested records (text_feat, "
+                      f"classes, boxes exactly; vis_feat within "
+                      f"{worst:.3g}, tolerance {FEAT_TOL}) ({card})")
+    torch.cuda.empty_cache()
+    say("ingest", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def kernel_phase(card, attention, build, roi_align, rk, failures):
     """Phase 3: every kernel against its plain version, timed; the rows of
     the kernels' JSON line by (kernel, shape, dtype)."""
@@ -2591,21 +3239,24 @@ def main():
                               "readings": readings}), flush=True)
     if "detector" in phases:
         roi_counts = detector(card, attention, roi_align, rk, failures)
+    if "ingest" in phases:
+        ingest_launches = ingest_phase(card, attention, failures)
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
     if not whole:
         return 0
-    # launches in the main paths: fp32 K1 rows count serving's and the
-    # eval phase's fp32 paths, bf16 rows the (bf16) training run's, its
+    # launches in the main paths: fp32 K1 rows count serving's, the eval
+    # phase's fp32 paths and the ingest phase's answers, bf16 rows the (bf16) training run's, its
     # in-train eval's and eval -bf16's; no main path runs K2 in fp32 (the
     # kernel phase and the fp32 cross-check step do)
     for (kname, dname), row in fwd_rows.items():
         paths = {p: c[(dname, kname)] for p, c in eval_counts.items()
                  if c.get((dname, kname))}
         if dname == "float32":
-            paths = {"serve": launches[kname], **paths}
+            paths = {"serve": launches[kname], **paths,
+                     "ingest": ingest_launches[kname]}
         else:
             paths = {"train": train_counts[kname][0],
                      "in-train eval": in_train_k1[kname], **paths}

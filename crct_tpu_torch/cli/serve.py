@@ -12,6 +12,11 @@ Usage:
 reference ``crct.ckpt``); Orbax checkpoints of the JAX package are not read
 yet. ``-fast_scorer`` (with ``-fast_scorer_topk K``) serves through the
 fast-scorer head of a ``cli.train_fast_scorer`` checkpoint.
+``-serve_detector_weights det.ckpt`` (a port detector checkpoint, a torch
+``.pth``, a Detectron2 ``.pkl`` or ``none``) enables POST /v1/figures: chart
+PNGs are ingested by the detector on the same device. With
+``-serve_no_dataset`` the server loads no feature shards and serves only
+ingested figures.
 """
 
 from __future__ import annotations
@@ -24,8 +29,7 @@ from crct_tpu_torch.serve import make_server
 from crct_tpu_torch.utils.device import params_device
 
 # flags of the JAX server that would change what the port serves
-NOT_PORTED = ("serve_detector_weights", "serve_no_dataset", "pallas",
-              "mesh_shape")
+NOT_PORTED = ("pallas", "mesh_shape")
 
 
 def main(argv=None):
@@ -34,14 +38,21 @@ def main(argv=None):
         if params.get(flag):
             raise SystemExit(f"-{flag} is not yet ported to the PyTorch "
                              f"server")
+    if params.get('serve_no_dataset') and \
+            not params.get('serve_detector_weights'):
+        raise SystemExit("-serve_no_dataset needs -serve_detector_weights: "
+                         "with no feature shards, figures can only arrive "
+                         "through POST /v1/figures ingestion")
     device = params_device(params)
     print(f"Loading the model on {device} and warming up...", flush=True)
     server = make_server(params, device=device)
     host, port = server.server_address[:2]
+    ingest = " | POST /v1/figures (PNG ingest)" if server.ingestor else ""
     print(f"Serving QA on http://{host or '0.0.0.0'}:{port} "
           f"(max_batch={params['serve_max_batch']}, "
           f"max_delay={params['serve_max_delay_ms']}ms). "
-          f"POST /v1/answer | POST /v1/answers | GET /healthz", flush=True)
+          f"POST /v1/answer | POST /v1/answers | GET /healthz{ingest}",
+          flush=True)
 
     # containerized deploys stop with SIGTERM: drain the batcher and close
     # the socket instead of dying mid-dispatch

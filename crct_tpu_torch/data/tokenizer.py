@@ -220,11 +220,16 @@ class WordPieceTokenizer:
         return [self.vocab.get(t, self.unk_id) for t in self.tokenize(str(text))]
 
 
-def load_tokenizer(vocab_file: str = ""):
+def load_tokenizer(vocab_file: str = "", prefer_native: bool = True):
     """Load the real vocab when provided, else the synthetic test vocab.
 
-    The port keeps the pure-Python tokenizer only; the JAX package's ctypes
-    C++ tokenizer (same ids) is not ported yet."""
+    With a vocab file the native C++ tokenizer (``data/native.py``, the same
+    ids) is used, built at first use; a failed build raises. The
+    pure-Python tokenizer serves a vocab file only with
+    ``prefer_native=False``."""
     if vocab_file:
+        if prefer_native:
+            from crct_tpu_torch.data.native import NativeWordPieceTokenizer
+            return NativeWordPieceTokenizer(vocab_file)
         return WordPieceTokenizer.from_vocab_file(vocab_file)
     return WordPieceTokenizer.synthetic()

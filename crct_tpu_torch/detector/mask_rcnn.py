@@ -101,10 +101,14 @@ class MaskRCNN(nn.Module):
                 gt_valid: Optional[torch.Tensor] = None,
                 gt_masks28: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                compute_masks: bool = True) -> Dict[str, torch.Tensor]:
+                compute_masks: bool = True,
+                extra_boxes: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         """Train: the mean over the images of each loss and their total.
         Inference: the detections of each image, stacked on a leading batch
-        axis. ``generator`` feeds the train path's two samplers per image
+        axis, and with ``extra_boxes`` [B, K, 4] the box-head features of
+        those boxes as ``roi_features`` [B, K, fc_dim], from the same trunk
+        pass. ``generator`` feeds the train path's two samplers per image
         (RPN anchors, then RoIs)."""
         H, W = images.shape[1], images.shape[2]
         p_feats = self.features(images)
@@ -120,8 +124,12 @@ class MaskRCNN(nn.Module):
             if not train:
                 proposals, _, prop_valid = propose(lg, dl, anchors, (H, W),
                                                    post_nms_topk=topk)
-                per_image.append(self._infer(maps, proposals, prop_valid,
-                                             (H, W), compute_masks))
+                out = self._infer(maps, proposals, prop_valid, (H, W),
+                                  compute_masks)
+                if extra_boxes is not None:
+                    out["roi_features"] = self._box_features(maps,
+                                                             extra_boxes[i])
+                per_image.append(out)
                 continue
             # proposals are training constants (Detectron2 detaches them
             # before the RoI heads): no graph through the NMS loop
@@ -187,9 +195,7 @@ class MaskRCNN(nn.Module):
         """One image's inference tail; mask logits in the JAX layout
         [K, 28, 28, num_classes]."""
         heads = self.roi_heads
-        pooled = multilevel_roi_align(maps, proposals, strides=ROI_STRIDES,
-                                      output_size=7)
-        feats = heads.box_head(pooled)
+        feats = self._box_features(maps, proposals)
         scores, box_deltas = heads.box_predictor(feats)
         det_boxes, det_scores, det_classes, det_valid, kept_rows = \
             box_head_inference(scores, box_deltas, proposals,
@@ -206,3 +212,32 @@ class MaskRCNN(nn.Module):
             out["mask_logits"] = heads.mask_head(mask_pooled).permute(
                 0, 2, 3, 1)
         return out
+
+    def _box_features(self, maps, boxes: torch.Tensor) -> torch.Tensor:
+        """One image's box-head features [K, fc_dim] of ``boxes`` [K, 4]."""
+        pooled = multilevel_roi_align(maps, boxes, strides=ROI_STRIDES,
+                                      output_size=7)
+        return self.roi_heads.box_head(pooled)
+
+    def detect_with_roi_features(self, images: torch.Tensor,
+                                 extra_boxes: torch.Tensor, *,
+                                 compute_masks: bool = False
+                                 ) -> Dict[str, torch.Tensor]:
+        """Inference plus the box-head features of caller-given boxes
+        [B, K, 4] from ONE trunk/FPN pass: the extractor's <IMG>-token path
+        (extract_features.py:54-100). The mask branch is skipped unless
+        asked for. Returns the inference dict with ``roi_features``
+        [B, K, fc_dim]."""
+        return self(images, train=False, compute_masks=compute_masks,
+                    extra_boxes=extra_boxes)
+
+    def extract_roi_features(self, images: torch.Tensor,
+                             boxes: torch.Tensor) -> torch.Tensor:
+        """The box-head features [B, K, fc_dim] of ``boxes`` [B, K, 4]
+        (the <IMG>-token path of the feature extractor,
+        extract_features.py:54-100)."""
+        p_feats = self.features(images)
+        return torch.stack([
+            self._box_features([f[i].permute(1, 2, 0) for f in p_feats[:4]],
+                               boxes[i])
+            for i in range(images.shape[0])])

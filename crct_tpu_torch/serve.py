@@ -11,13 +11,21 @@ Surfaces:
   GET  /healthz                    -> {"status": "ok", dispatches, served,
                                       latency_ms_p50/p95 (rolling),
                                       mean_coalesced_batch}
-  GET  /v1/figures                 -> ingested figure ids (none: ingestion
-                                      is not ported yet)
+  GET  /v1/figures                 -> ingested figure ids
   GET  /v1/figures/<id>/questions  -> known questions for a figure
-  POST /v1/figures                 -> 400 "figure ingestion is disabled"
+  POST /v1/figures                 -> ingest a chart PNG: the detector and
+                                      the extraction build the feature record
+                                      in-process (crct_tpu_torch/ingest.py);
+                                      needs -serve_detector_weights
   POST /v1/answer                  -> one pred dict (free-form question or a
                                       known question picked by index)
   POST /v1/answers                 -> list of pred dicts, scored as a batch
+
+With ``-serve_no_dataset`` the server runs without feature shards or QA
+files: every figure arrives over POST /v1/figures and every question is
+free-form, the online PNG -> answer composition that the reference only
+supports as an offline two-stage pipeline (Detector/extract_features.py,
+then CRCT/Interactive_demo.py).
 
 ``-fast_scorer`` serves through the light candidate head (ONE backbone
 pass per question instead of the x120 candidate-row fan-out); adding
@@ -28,11 +36,13 @@ checkpoint that carries a trained head (``cli.train_fast_scorer``).
 The pred dict mirrors the JAX server's (answer, cls_output, reg_output,
 is_reg, confidence, optional ``top``); ``confidence`` is the model's raw
 per-candidate NSP probability (fast-only: the head's softmax over the valid
-candidates). Figure ingestion and data parallelism are not ported yet.
+candidates). Data parallelism is not ported yet.
 """
 
 from __future__ import annotations
 
+import base64
+import io
 import json
 import queue
 import threading
@@ -60,6 +70,33 @@ from crct_tpu_torch.train.eval_loop import (EVAL_TEXT_KEYS, EVAL_VIS_KEYS,
                                             shortlist_rescore_rows)
 from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
 from crct_tpu_torch.utils.device import resolve_device
+
+
+class InMemoryFigures:
+    """Dataset stand-in for ingest-only serving (-serve_no_dataset).
+
+    No feature shards, no QA file: every figure record arrives through
+    POST /v1/figures and lands in ``QAScorer.figs``; this supplies the
+    builder and tokenizer the scorer needs (the part of ChartQADataset the
+    serving path touches)."""
+
+    def __init__(self, params: Dict[str, Any], split: str = "test"):
+        from crct_tpu_torch.data.example_builder import ExampleBuilder
+        from crct_tpu_torch.data.tokenizer import load_tokenizer
+        self.params = params
+        self.tokenizer = load_tokenizer(params.get("vocab_file", ""))
+        self.builder = ExampleBuilder(params, self.tokenizer)
+        self.split = split
+        self.qa: Dict[str, List[Dict[str, Any]]] = {split: []}
+
+    def get_fig_feat(self, image_id: int) -> Dict[str, Any]:
+        raise KeyError(image_id)    # only ingested figures exist
+
+    def get_possible_answers(self, image_id: int,
+                             fig_feat: Optional[Dict] = None) -> List[str]:
+        if fig_feat is None:
+            fig_feat = self.get_fig_feat(image_id)
+        return self.builder.get_possible_answers(fig_feat)
 
 
 class QAScorer:
@@ -118,8 +155,22 @@ class QAScorer:
             # batch holds at most serve_max_batch questions, so one fast
             # dispatch covers it with bounded padding
             self.qchunk = self.vis_pad
+        self.figs: Dict[int, Dict[str, Any]] = {}   # ingested overlay
         self.dispatches = 0
         self.served = 0
+
+    def add_figure(self, record: Dict[str, Any]) -> int:
+        """Register an ingested feature record; its image_id becomes a
+        servable image_index (overlaying any shard figure of the same id).
+        Bounded FIFO: beyond ``serve_max_figures`` (default 512) the oldest
+        ingested record is evicted, so a long-running server's memory stays
+        capped (a few hundred KB per record)."""
+        image_id = int(record["image_id"])
+        cap = max(1, int(self.params.get("serve_max_figures", 512) or 512))
+        while len(self.figs) >= cap and image_id not in self.figs:
+            self.figs.pop(next(iter(self.figs)))   # dicts keep insert order
+        self.figs[image_id] = record
+        return image_id
 
     def _vis_from_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Per-question visual arrays -> the card, once per coalesced batch
@@ -172,7 +223,8 @@ class QAScorer:
         for i, qa in enumerate(qa_pairs):
             idx = int(qa["image_index"])
             try:
-                fig_feat = ds.get_fig_feat(idx)
+                fig_feat = (self.figs[idx] if idx in self.figs
+                            else ds.get_fig_feat(idx))
             except (KeyError, IndexError):
                 # one unknown id must not poison the coalesced batch: the
                 # other requests still score; this one carries the error
@@ -441,9 +493,13 @@ class QAServer(ThreadingHTTPServer):
     answer_timeout = 120.0
 
     def __init__(self, addr, scorer: QAScorer, *, max_batch: int = 32,
-                 max_delay_ms: float = 5.0):
+                 max_delay_ms: float = 5.0, ingestor=None):
         super().__init__(addr, _Handler)
         self.scorer = scorer
+        self.ingestor = ingestor
+        self._ingest_lock = threading.Lock()
+        self._next_fig_id = 10 ** 9       # auto ids clear of dataset ids
+        self._qa_warm_kicked = False
         # rolling serving-latency window (ms, batch-level submit->result)
         self.latencies_ms: deque = deque(maxlen=2048)
         self.batcher = DynamicBatcher(scorer.score, max_batch=max_batch,
@@ -457,6 +513,44 @@ class QAServer(ThreadingHTTPServer):
         for qa in scorer.dataset.qa[scorer.dataset.split]:
             self.img_to_qas.setdefault(
                 int(qa["image_index"]), []).append(qa)
+
+    def ingest_figure(self, png_bytes: bytes, *,
+                      image_id: Optional[int] = None,
+                      annotation: Optional[Dict[str, Any]] = None,
+                      ocr_mode: Optional[str] = None) -> Dict[str, Any]:
+        """Decode, detect and extract one chart and register its record.
+
+        Runs on the caller's HTTP thread; the ingestor serializes its use of
+        the card, so concurrent uploads are safe."""
+        if self.ingestor is None:
+            raise ValueError("figure ingestion is disabled: start the "
+                             "server with -serve_detector_weights")
+        from PIL import Image, UnidentifiedImageError
+        try:
+            im = Image.open(io.BytesIO(png_bytes))
+        except UnidentifiedImageError:
+            raise ValueError("body does not decode as an image")
+        if image_id is None:
+            with self._ingest_lock:
+                # skip ids a client already claimed explicitly: an auto id
+                # never overwrites an existing figure
+                while self._next_fig_id in self.scorer.figs:
+                    self._next_fig_id += 1
+                image_id = self._next_fig_id
+                self._next_fig_id += 1
+        record = self.ingestor.ingest(im, int(image_id),
+                                      annotation=annotation,
+                                      ocr_mode=ocr_mode)
+        self.scorer.add_figure(record)
+        if not self.img_to_qas and not self._qa_warm_kicked:
+            # a server without known questions could not warm up at
+            # startup: build the kernels now, off this thread; later
+            # questions queue behind it on the batcher
+            self._qa_warm_kicked = True
+            self.batcher.submit({"question_string": "warmup ?",
+                                 "image_index": int(record["image_id"]),
+                                 "answer": None, "qid": None, "type": "dot"})
+        return record
 
     def process_request_thread(self, request, client_address):
         with self._inflight_cv:
@@ -528,6 +622,45 @@ class _Handler(BaseHTTPRequestHandler):
                 "image_index": image_index, "answer": None,
                 "qid": None, "type": "dot"}
 
+    def _ingest(self, req: Dict[str, Any]) -> None:
+        """POST /v1/figures: {"png_base64", "image_id"?, "annotation"?,
+        "ocr_mode"?} -> the registered figure's id and a record summary."""
+        from crct_tpu_torch.ingest import IngestError
+        if not req.get("png_base64"):
+            raise ValueError("missing 'png_base64' (base64-encoded image)")
+        try:
+            png = base64.b64decode(req["png_base64"], validate=True)
+        except (ValueError, TypeError):
+            raise ValueError("'png_base64' is not valid base64")
+        image_id = req.get("image_id")
+        try:
+            record = self.server.ingest_figure(
+                png, image_id=None if image_id is None else int(image_id),
+                annotation=req.get("annotation"),
+                ocr_mode=req.get("ocr_mode"))
+        except IngestError as exc:   # image decoded but yields no record
+            self._json(422, {"error": str(exc)})
+            return
+        except ValueError:
+            raise                    # -> 400 (bad image / ingest disabled)
+        except Exception as exc:     # noqa: BLE001
+            # extraction runs over client-supplied bytes and annotation
+            # JSON; malformed input can fail anywhere in the geometry and
+            # OCR pipeline (a truncated PNG's OSError, an annotation's
+            # TypeError/KeyError). Answer with an HTTP error instead of
+            # dropping the connection.
+            self._json(422, {"error": f"ingestion failed: "
+                                      f"{type(exc).__name__}: {exc}"})
+            return
+        opts = self.server.scorer.dataset.get_possible_answers(
+            record["image_id"], record)
+        self._json(200, {
+            "image_index": int(record["image_id"]),
+            "n_elements": int(len(record["vis_feat"])),
+            "n_possible_answers": len(opts),
+            "title": str(record["text_feat"]
+                         .get("title", {}).get("text", ""))})
+
     def _answer(self, reqs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         t0 = monotonic()
         futs = [self.server.batcher.submit(self._qa_pair(r),
@@ -553,7 +686,11 @@ class _Handler(BaseHTTPRequestHandler):
                 "mean_coalesced_batch": round(float(np.mean(bs)), 2)
                 if bs else None})
         elif self.path == "/v1/figures":
-            self._json(200, {"ingested": [], "ingest_enabled": False})
+            # list() is atomic under the GIL; sorting the dict view
+            # directly could race concurrent ingest inserts
+            self._json(200, {
+                "ingested": sorted(list(self.server.scorer.figs)),
+                "ingest_enabled": self.server.ingestor is not None})
         elif (len(parts) == 4 and parts[:2] == ["v1", "figures"]
                 and parts[3] == "questions"):
             try:
@@ -586,8 +723,7 @@ class _Handler(BaseHTTPRequestHandler):
                 # batch responses stay 200 with per-item "error" fields
                 self._json(200, {"answers": self._answer(req["questions"])})
             elif self.path == "/v1/figures":
-                raise ValueError("figure ingestion is disabled: the port "
-                                 "has no detector yet")
+                self._ingest(req)
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
         except ValueError as exc:
@@ -605,19 +741,37 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def make_server(params: Dict[str, Any], *, dataset=None, model=None,
-                port: Optional[int] = None, device="cuda") -> QAServer:
+                port: Optional[int] = None, ingestor=None,
+                device="cuda") -> QAServer:
     """Build the server on ``device`` (port 0 picks a free port). It scores
     one known question before it is returned, so the kernel build happens
-    before traffic is accepted."""
+    before traffic is accepted. ``ingestor`` (or -serve_detector_weights,
+    whose detector runs on the same device) enables POST /v1/figures and
+    runs one detect before the server is returned; -serve_no_dataset skips
+    the feature shards entirely."""
     device = resolve_device(device)
     if dataset is None:
-        dataset = ChartQADataset(params, params["eval_set"],
-                                 init_split=params["eval_set"])
-        dataset.get_all_answers = True
+        if params.get("serve_no_dataset"):
+            dataset = InMemoryFigures(params, split=params["eval_set"])
+        else:
+            dataset = ChartQADataset(params, params["eval_set"],
+                                     init_split=params["eval_set"])
+            dataset.get_all_answers = True
+    if ingestor is None and params.get("serve_detector_weights"):
+        from crct_tpu_torch.detector.extract import parse_canvas
+        from crct_tpu_torch.ingest import FigureIngestor
+        ingestor = FigureIngestor.from_weights(
+            params["serve_detector_weights"], dataset=params["dataset"],
+            num_classes=params.get("categories") or 228,
+            canvas=parse_canvas(params["serve_detector_canvas"]),
+            short_edge=params.get("serve_short_edge", 800), device=device)
     scorer = QAScorer(params, dataset, model=model, device=device)
     server = QAServer(("", params["port"] if port is None else port), scorer,
                       max_batch=params.get("serve_max_batch", 32),
-                      max_delay_ms=params.get("serve_max_delay_ms", 5.0))
+                      max_delay_ms=params.get("serve_max_delay_ms", 5.0),
+                      ingestor=ingestor)
     if server.img_to_qas:
         scorer.warmup(next(iter(server.img_to_qas.values()))[0])
+    if ingestor is not None:
+        ingestor.warmup()
     return server

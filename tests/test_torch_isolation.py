@@ -1,9 +1,9 @@
 """The port stands alone, and runs on the CPU only when asked.
 
 crct_tpu_torch imports torch and numpy and nothing of JAX or of the JAX
-package, and PIL, pandas, matplotlib and tensorboard only inside the
-functions that need them (the machine with the card has none of the first
-three); its entry points run on the card unless the caller
+package, and PIL, pandas, matplotlib, tensorboard, scipy and tensorstore
+only inside the functions that need them (the machine with the card has
+none of the first three); its entry points run on the card unless the caller
 passes device="cpu", and with no card they raise instead of carrying on on
 the CPU.
 """
@@ -31,7 +31,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "orbax", "crct_tpu", "PIL",
                                             "pandas", "matplotlib",
-                                            "tensorboard"))
+                                            "tensorboard", "scipy",
+                                            "tensorstore"))
         assert not bad, bad
         assert "crct_tpu_torch.serve" in names, names
         print(len(names))
@@ -108,3 +109,17 @@ def test_eval_entry_points_default_to_the_card(no_card):
     for main in (evaluate, train_fast):
         with pytest.raises(RuntimeError, match="no card"):
             main(["-qa_file", "qa_pairs.npy", "-save_name", "x"])
+
+
+def test_ingest_entry_points_default_to_the_card(no_card):
+    from crct_tpu_torch.cli.extract_features import main as extract
+    from crct_tpu_torch.detector.extract import detector_from_weights
+    from crct_tpu_torch.ingest import FigureIngestor
+    with pytest.raises(RuntimeError, match="no card"):
+        extract(["--load-weights", "none", "--output", "out",
+                 "--batch-size", "2"])
+    with pytest.raises(RuntimeError, match="no card"):
+        detector_from_weights("none", dataset="plotqa", num_classes=4,
+                              canvas=(32, 32), depth=14)
+    with pytest.raises(RuntimeError, match="no card"):
+        FigureIngestor.from_weights("none", num_classes=4, canvas=(32, 32))

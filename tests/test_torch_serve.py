@@ -285,8 +285,11 @@ def test_dynamic_batcher_coalesces_and_preserves_order():
 
 def test_cli_rejects_flags_not_yet_ported():
     from crct_tpu_torch.cli.serve import main
-    for flag in (["-serve_no_dataset"], ["-serve_detector_weights", "w"],
-                 ["-pallas"], ["-mesh_shape", "4"]):
+    for flag in (["-pallas"], ["-mesh_shape", "4"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(["-qa_file", "qa_pairs.npy", "-save_name", "x",
                   "-device", "cpu", *flag])
+    # ported: but a server without shards needs the detector to ingest
+    with pytest.raises(SystemExit, match="needs -serve_detector_weights"):
+        main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-device",
+              "cpu", "-serve_no_dataset"])
