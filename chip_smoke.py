@@ -9,7 +9,10 @@ With no arguments it runs every phase below on the port beside it. --tree
 drives another checkout's crct_tpu_torch instead, --phases a comma-separated
 subset (plus "times": K1 and K2 timed through fused_attention alone, and K3
 through mlra_backward_kernel, at the flagship shapes in both dtypes, as the
-kernel phase times them), and --seeds
+kernel phase times them; and "cards", on a machine with 2 or more cards:
+cli.train -ddp under torchrun over every card, the parallel phase's rank
+group over nccl with one rank a card, and a QAScorer with a replica on each
+card against one card), and --seeds
 the generator seeds of each cross-check step; such a run prints each phase's
 result as a JSON line and not the result line. Comparing two checkouts on
 one card: parent, change, change, parent, with --phases times,cross.
@@ -99,6 +102,25 @@ Phases, one line each (any failure exits non-zero):
                the CPU (the same weights): text_feat equal, the <IMG>
                feature and the oracle detections within stated tolerances,
                differences only at ties of the score cut or NMS.
+ 10. parallel - data parallelism and remat: the flagship model at batch 80
+               in bf16, PAR_STEPS train steps with remat and without from
+               the same weights and generator (the first steps' loss and
+               fp32 gradients held at REMAT_LIMITS, 60 K1 and 30 K2
+               launches a remat step, the peak memory and the median step
+               time of each); cli.train -ddp under torchrun --standalone
+               --nproc_per_node 1 (4 bf16 steps and the in-train eval; the
+               rank-0 checkpoint loaded into an unwrapped model with
+               strict=True); two gloo ranks on the one card (nccl refuses
+               two ranks a device) that load the kernels already built:
+               an fp32 QA step at local batch 40 against the one-rank step
+               at batch 80 (dropout 0, TF32 off), cli.evaluate over the
+               eval phase's questions with tables equal to a one-rank run,
+               and an fp32 detector step at one image a rank against the
+               one-rank batch-2 step (the same sampling noise; each rank
+               replays its image's ReLU signs and proposals of that step,
+               whose gradients jump where a ReLU input within fp32
+               reordering of zero changes sign; the detector cross-check's
+               limits), with K3's launches counted per rank and shape.
 The line before the last holds the kernels' numbers as JSON, a row for each
 kernel, shape and dtype; the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
@@ -164,7 +186,8 @@ N_BATCH = 8                   # questions in the /v1/answers request
 TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
 KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
-PHASES = ("kernel", "serve", "eval", "train", "cross", "detector", "ingest")
+PHASES = ("kernel", "serve", "eval", "train", "cross", "detector", "ingest",
+          "parallel")
 EVAL_IMAGES = 16              # synthetic test (and train) figures x 4
                               # questions of the eval phase
 FS_STEPS = 40                 # fast-scorer head steps
@@ -199,6 +222,21 @@ INGEST_SHORT_EDGE = 800
 FEAT_TOL = 1e-4               # region features: card vs CPU, batch 8 vs 1
 BOX_TOL = 0.05                # px: a detection on two devices is the same
 TIE_TOL = 1e-4                # scores / IoUs this close to a cut are ties
+# the parallel phase: train steps of each remat setting (the first two
+# compared, the last 3 timed); the remat step against the plain one (loss,
+# relative; every gradient's max |diff| over max(1, |g|)); figures of the
+# -ddp run's train split (x 4 questions x 2 = 4 steps of 80); the 2-rank
+# fp32 QA step's gradient limit, max |diff| over max(1, |g|)
+PAR_STEPS = 5
+REMAT_LIMITS = {"loss_rel": 1e-6, "grad": 1e-5}
+PAR_DDP_IMAGES = 40
+PAR_QA_GRAD = 1e-4
+# score() calls timed for each QAScorer of the cards phase, after a warm-up
+SERVE_CALLS = 5
+# the 2-rank detector step replays the one-rank step's ReLU signs: a ReLU
+# input of a rank's own that takes the other side must lie within this of
+# zero (a kink that the order of fp32 sums decides, not a different value)
+PAR_KINK = 1e-3
 
 
 def say(phase, msg):
@@ -565,10 +603,10 @@ def check_rec(rec, failures, where):
         failures.append(f"{where}: confidence {conf!r} not in [0, 1]")
 
 
-def compare_scoring(kernel_recs, plain_recs, failures):
+def compare_scoring(kernel_recs, plain_recs, failures, tol=1e-4):
     """Kernel vs plain attention on the same questions: per-candidate NSP
-    probabilities within 1e-4 and the same chosen answers (a different
-    choice passes only as a tie within 1e-4 of the plain maximum)."""
+    probabilities within ``tol`` and the same chosen answers (a different
+    choice passes only as a tie within ``tol`` of the plain maximum)."""
     worst, ties = 0.0, 0
     for kr, pr in zip(kernel_recs, plain_recs):
         kp = {t["answer"]: t["confidence"] for t in kr["top"]}
@@ -578,14 +616,14 @@ def compare_scoring(kernel_recs, plain_recs, failures):
             continue
         worst = max(worst, max(abs(kp[a] - pp[a]) for a in kp))
         if kr["cls_output"] != pr["cls_output"]:
-            if pp[pr["cls_output"]] - pp[kr["cls_output"]] <= 1e-4:
+            if pp[pr["cls_output"]] - pp[kr["cls_output"]] <= tol:
                 ties += 1
             else:
                 failures.append(f"answers differ for {kr['question']!r}: "
                                 f"{kr['cls_output']!r} vs "
                                 f"{pr['cls_output']!r}")
-    if worst > 1e-4:
-        failures.append(f"NSP probabilities differ by {worst} > 1e-4")
+    if worst > tol:
+        failures.append(f"NSP probabilities differ by {worst} > {tol}")
     return worst, ties
 
 
@@ -3070,6 +3108,825 @@ def ingest_phase(card, attention, failures):
     return launches
 
 
+def remat_steps(attention, batch, params, card, failures):
+    """The flagship model at batch 80 in bf16: PAR_STEPS train steps with
+    remat off, then on, from the same weights and generator; the first
+    steps held against each other, K1/K2 launches of a remat step, peak
+    memory and the median step time of each setting."""
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.config import CRCTModelConfig
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.train.optimizer import AdamW
+    from crct_tpu_torch.train.train_loop import device_batch, make_train_step
+
+    model_config = os.path.join(HERE, "config", "vilbert.json")
+    db = device_batch(batch, "cuda")
+    pd = dict(params, bf16=True)
+    runs = {}
+    for remat in (False, True):
+        cfg = CRCTModelConfig.from_json_file(model_config)
+        cfg.remat = remat
+        model = build_model(pd, config=cfg, device="cuda", train=True)
+        step = make_train_step(model, AdamW(list(model.named_parameters()),
+                                            pd, 12))
+        gen = torch.Generator().manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.reset_launch_count()
+        ms, losses = [], []
+        for i in range(PAR_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(db, gen)[0]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                k = {name: (attention.LAUNCHES[("bfloat16", *shape)],
+                            attention.BWD_LAUNCHES[("bfloat16", *shape)])
+                     for name, shape in SHAPES.items()}
+                grads = {n: p.grad.float().cpu()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+        wall, busy = busy_ms(lambda: step(db, gen))
+        runs[remat] = dict(loss=losses[0], grads=grads, launches=k, ms=ms,
+                           wall=wall, busy=busy,
+                           median=float(np.median(ms[-3:])),
+                           peak=torch.cuda.max_memory_allocated() / 1e9,
+                           total={name: (attention.LAUNCHES[("bfloat16", *s)],
+                                         attention.BWD_LAUNCHES[
+                                             ("bfloat16", *s)])
+                                  for name, s in SHAPES.items()})
+        del model, step
+        torch.cuda.empty_cache()
+
+    cfg = CRCTModelConfig.from_json_file(model_config)
+    per_step = {"text": cfg.num_hidden_layers,
+                "vision": cfg.v_num_hidden_layers,
+                "bi_text_queries": len(cfg.v_biattention_id),
+                "bi_vision_queries": len(cfg.v_biattention_id)}
+    off, on = runs[False], runs[True]
+    for name, n in per_step.items():
+        if on["launches"][name] != (2 * n, n) or off["launches"][name] != (
+                n, n):
+            failures.append(f"remat {name}: (K1, K2) launches a step "
+                            f"{on['launches'][name]} with remat and "
+                            f"{off['launches'][name]} without, want "
+                            f"({2 * n}, {n}) and ({n}, {n})")
+    loss_rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    worst, worst_name, equal = 0.0, "", 0
+    for name, g in off["grads"].items():
+        d = (on["grads"][name] - g).abs().max().item() / max(
+            1.0, g.abs().max().item())
+        equal += torch.equal(on["grads"][name], g)
+        if d >= worst:
+            worst, worst_name = d, name
+    if set(on["grads"]) != set(off["grads"]) or not (
+            loss_rel <= REMAT_LIMITS["loss_rel"]
+            and worst <= REMAT_LIMITS["grad"]):
+        failures.append(f"remat: loss relative {loss_rel}, worst gradient "
+                        f"{worst_name} off by {worst} of max(1, |g|) (limits "
+                        f"{REMAT_LIMITS})")
+    if not on["peak"] < off["peak"]:
+        failures.append(f"remat: peak {on['peak']:.2f} GB, not below "
+                        f"{off['peak']:.2f} GB without remat")
+    say("parallel", f"remat at batch {B_TRAIN}, bf16 autocast, dropout "
+                    f"{cfg.attention_probs_dropout_prob}, the same weights "
+                    f"and generator: first step's loss {on['loss']:.7f} vs "
+                    f"{off['loss']:.7f} without remat (relative "
+                    f"{loss_rel:.3g}, limit {REMAT_LIMITS['loss_rel']:g}); "
+                    f"{equal} of {len(off['grads'])} fp32 gradients equal "
+                    f"bit for bit, worst {worst_name} off by {worst:.3g} of "
+                    f"max(1, |g|) (limit {REMAT_LIMITS['grad']:g}); (K1, K2) "
+                    f"launches a step {sorted(set(on['launches'].values()))} "
+                    f"with remat, {sorted(set(off['launches'].values()))} "
+                    f"without ({card})")
+    for remat, r in ((False, off), (True, on)):
+        say("parallel", f"remat {'on' if remat else 'off'}: peak "
+                        f"{r['peak']:.2f} GB allocated over {PAR_STEPS} "
+                        f"steps, step ms "
+                        f"{', '.join(f'{x:.1f}' for x in r['ms'])}, median "
+                        f"of the last 3 {r['median']:.2f} ms = "
+                        f"{B_TRAIN / r['median'] * 1e3:.1f} QA pairs/s; "
+                        f"one more step under torch.profiler: the card busy "
+                        f"{r['busy']:.2f} of {r['wall']:.2f} ms ({card})")
+    return {"remat train": {(name, "bfloat16"): on["total"][name][0]
+                            for name in SHAPES},
+            "remat train K2": {(name, "bfloat16"): on["total"][name][1]
+                               for name in SHAPES}}
+
+
+def busy_ms(fn):
+    """(wall ms, the card's busy ms) of one synchronized call of ``fn``
+    under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    return wall, sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def spawn(argv, timeout, env=None):
+    """Run a child command to its end (killed at ``timeout`` s): its exit
+    code and output."""
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, **(env or {})))
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        return -9, out
+    return proc.returncode, out
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def ddp_train(root, failures, card, nproc=1):
+    """cli.train -ddp under torchrun over ``nproc`` processes, one a card
+    (4 bf16 steps at batch 80 a card and the in-train eval); the checkpoint
+    that rank 0 saves loaded into an unwrapped model with strict=True.
+    Returns rank 0's launches."""
+    from crct_tpu_torch.config import CRCTModelConfig
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    from crct_tpu_torch.models.crct import CRCTModel
+    from crct_tpu_torch.utils.checkpoint import load_checkpoint
+
+    images = PAR_DDP_IMAGES * nproc
+    data = generate_dataset(os.path.join(root, "data"), n_images=images,
+                            division=8, n_questions=4, feat_dim=1024,
+                            splits=("train",), seed=SEED)
+    val = generate_dataset(os.path.join(root, "data"), n_images=VAL_IMAGES,
+                           division=8, n_questions=4, feat_dim=1024,
+                           splits=("val",), seed=SEED + 1)
+    data["dataset_files_divisions"].update(val["dataset_files_divisions"])
+    ds_json = os.path.join(root, "ds.json")
+    with open(ds_json, "w") as f:
+        json.dump(dict(data, main_folder="", splits=["train", "val"],
+                       save_path=os.path.join(root, "results"),
+                       max_seq_len=124, max_vis_features=44,
+                       categories=228), f)
+    model_config = os.path.join(HERE, "config", "vilbert.json")
+    out_json = os.path.join(root, "ddp.json")
+    argv = ["-qa_file", "qa_pairs.npy", "-dataset_config", ds_json,
+            "-model_config", model_config, "-seed", str(SEED),
+            "-batch_size", str(B_TRAIN), "-bf16", "-num_epochs", "1",
+            "-num_workers", "2", "-save_name", "ddp", "-eval_set", "val",
+            "-ddp", "-dist_url", "env://"]
+    t0 = time.perf_counter()
+    rc, out = spawn([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node", str(nproc),
+                     os.path.abspath(__file__), "--child", "ddp_train",
+                     HERE, out_json, "--", *argv], timeout=420)
+    wall = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(out_json):
+        failures.append(f"torchrun cli.train -ddp: exit {rc}:\n{out[-3000:]}")
+        return {}
+    with open(out_json) as f:
+        res = json.load(f)
+    want = images * 4 * 2 // (B_TRAIN * nproc)
+    cfg = CRCTModelConfig.from_json_file(model_config)
+    per_step = {"text": cfg.num_hidden_layers,
+                "vision": cfg.v_num_hidden_layers,
+                "bi_text_queries": len(cfg.v_biattention_id),
+                "bi_vision_queries": len(cfg.v_biattention_id)}
+    line = f"De facto batch_size: {B_TRAIN}*{nproc}*1 = {B_TRAIN * nproc}"
+    if (res["steps"] != want or res["world"] != nproc or res["built"]
+            or line not in out):
+        failures.append(f"torchrun cli.train -ddp: {res['steps']} steps "
+                        f"(want {want}), world {res['world']} (want "
+                        f"{nproc}), kernels built again: {res['built']}, "
+                        f"'{line}' {'logged' if line in out else 'missing'}")
+    for name, n in per_step.items():
+        k1, k2 = res["train"][name]
+        if (k1, k2) != (n * want, n * want) or res["eval"][name] < 1:
+            failures.append(f"torchrun cli.train -ddp {name}: (K1, K2) "
+                            f"launches of rank 0's steps {(k1, k2)}, want "
+                            f"{(n * want, n * want)}; in-train eval K1 "
+                            f"{res['eval'][name]}")
+    model = CRCTModel(cfg, categories=228)
+    saved = load_checkpoint(res["checkpoint"])["model_state_dict"]
+    try:
+        model.load_state_dict(saved, strict=True)
+        strict = "loads with strict=True"
+    except RuntimeError as exc:
+        strict = f"does not load: {str(exc)[:300]}"
+        failures.append(f"torchrun cli.train -ddp: the checkpoint {strict}")
+    group = ("one process, so no process group forms, as in the JAX "
+             "initializer" if nproc == 1 else "nccl, a gloo group for the "
+             "host's reductions")
+    say("parallel", f"torchrun --standalone --nproc_per_node {nproc} "
+                    f"cli.train -ddp (world size {res['world']}: {group}): "
+                    f"{res['steps']} bf16 steps at batch {B_TRAIN} a rank "
+                    f"and the in-train eval (its {res['eval_count']} "
+                    f"questions once over the ranks) in {wall:.1f} s wall "
+                    f"(the children's start and model build included), "
+                    f"losses {res['losses']}, rank 0's K1/K2 launches of "
+                    f"the steps "
+                    f"{sorted(set(map(tuple, res['train'].values())))} and "
+                    f"K1 of its in-train eval {res['eval']}; the kernels "
+                    f"loaded from build/kernels/ ({len(res['built'])} built "
+                    f"in the child); the rank-0 checkpoint "
+                    f"{os.path.basename(res['checkpoint'])} {strict} into "
+                    f"an unwrapped CRCTModel ({card})")
+    del model, saved
+    return {"ddp train": {(name, "bfloat16"): res["train"][name][0]
+                          for name in SHAPES},
+            "ddp in-train eval": {(name, "bfloat16"): res["eval"][name]
+                                  for name in SHAPES},
+            "ddp train K2": {(name, "bfloat16"): res["train"][name][1]
+                             for name in SHAPES}}
+
+
+def eval_data(root):
+    """The eval phase's synthetic test split, its dataset config and the
+    flagship model's random weights as a checkpoint, under root; the eval
+    CLI's arguments."""
+    from crct_tpu_torch.config import default_params
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model_config = os.path.join(HERE, "config", "vilbert.json")
+    data = generate_dataset(os.path.join(root, "eval"),
+                            n_images=EVAL_IMAGES, division=4, n_questions=4,
+                            feat_dim=1024, splits=("train", "test"),
+                            seed=SEED)
+    ds_json = os.path.join(root, "eval.json")
+    with open(ds_json, "w") as f:
+        json.dump(dict(data, main_folder="", splits=["train", "val", "test"],
+                       save_path=os.path.join(root, "results"),
+                       max_seq_len=124, max_vis_features=44,
+                       categories=228), f)
+    ckpt = os.path.join(root, "random.ckpt")
+    model = build_model(default_params(model_config=model_config, seed=SEED),
+                        device="cuda")
+    save_checkpoint(ckpt, model.state_dict())
+    del model
+    return ["-qa_file", "qa_pairs.npy", "-dataset_config", ds_json,
+            "-model_config", model_config, "-seed", str(SEED),
+            "-num_workers", "1", "-eval_set", "test",
+            "-start_checkpoint", ckpt]
+
+
+def rank_group(batch, params, root, failures, card, world, backend):
+    """``world`` ranks, started by this script: over gloo all on the one
+    card (nccl refuses two ranks on one device), over nccl one a card.
+    (a) an fp32 QA step at batch 80 / world a rank against the one-rank
+    step at batch 80, (b) cli.evaluate over the ranks against the one-rank
+    run in this process, (c) an fp32 detector step at one image a rank
+    against the one-rank step over the same images, the ranks replaying its
+    ReLU signs and proposals. Returns the ranks' launches by path."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from crct_tpu_torch.cli import evaluate as cli_eval
+    from crct_tpu_torch.detector.trainer import (BATCH_KEYS,
+                                                 detector_batch_iterator)
+
+    tag = f"{world} {backend} ranks"
+    argv = eval_data(root)
+    with redirect_stdout(io.StringIO()):
+        one_total, one_breakdown = cli_eval.main(
+            argv + ["-save_name", "one", "-predictions_out",
+                    os.path.join(root, "one.jsonl")])
+    n_q = int(one_total[4, 1])
+
+    # (a)'s batch and (c)'s, for the children
+    np.savez(os.path.join(root, "qa_batch.npz"),
+             **{k: np.asarray(v) for k, v in batch.items()
+                if isinstance(v, np.ndarray)})
+    det_batch = next(detector_batch_iterator(ChartSet(CANVAS), world,
+                                             BATCH_KEYS, 1, seed=SEED))
+    np.savez(os.path.join(root, "det_batch.npz"), **det_batch)
+    with open(os.path.join(root, "case.json"), "w") as f:
+        json.dump({"params": {k: v for k, v in params.items()
+                              if isinstance(v, (int, float, str, bool))},
+                   "eval_argv": argv + [
+                       "-save_name", "ranks", "-predictions_out",
+                       os.path.join(root, "ranks.jsonl")]}, f)
+
+    port = str(free_port())
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", "ranks", HERE,
+         root, str(r), str(world), port, backend], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    # a rank that fails ends the others, which would wait for it
+    while any(p.poll() is None for p in procs):
+        if (any(p.poll() not in (None, 0) for p in procs)
+                or time.perf_counter() - t0 > 600):
+            for p in procs:
+                p.kill()
+        time.sleep(0.5)
+    wall = time.perf_counter() - t0
+    res = []
+    for r, p in enumerate(procs):
+        logs[r].close()
+        path = os.path.join(root, f"rank_{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(logs[r].name) as f:
+                failures.append(f"{tag}, rank {r}: exit {p.returncode}:\n"
+                                f"{f.read()[-3000:]}")
+            return {}
+        with open(path) as f:
+            res.append(json.load(f))
+    ref = res[0]["reference"]
+
+    # (a) the QA step
+    qa = ref["qa"]
+    if not (qa["loss_rel"] <= FP32_CROSS["loss_rel"]
+            and qa["grad"] <= PAR_QA_GRAD):
+        failures.append(f"{tag} QA step: loss relative {qa['loss_rel']}, "
+                        f"worst gradient {qa['grad_of']} off by "
+                        f"{qa['grad']} of max(1, |g|)")
+    same = len({r_["qa_digest"] for r_ in res}) == 1
+    if not same:
+        failures.append(f"{tag} QA step: the ranks' gradients differ after "
+                        f"the all-reduce")
+    say("parallel", f"{tag}, fp32 QA step at local batch {B_TRAIN // world}"
+                    f" (dropout 0, TF32 off) against the one-rank step at "
+                    f"batch {B_TRAIN}: loss {qa['loss']:.7f} vs "
+                    f"{qa['want_loss']:.7f} (relative {qa['loss_rel']:.3g}, "
+                    f"limit {FP32_CROSS['loss_rel']:g}), worst gradient "
+                    f"{qa['grad_of']} off by {qa['grad']:.3g} of max(1, |g|)"
+                    f" (limit {PAR_QA_GRAD:g}); {qa['equal']} of {qa['n']} "
+                    f"gradients equal bit for bit; the ranks' gradients "
+                    f"after the all-reduce equal: {same}; one all-reduce of "
+                    f"the gradients {qa['reduce_ms']:.1f} ms ({card})")
+
+    # (b) the eval CLI
+    same_tables, n_recs = True, 0
+    for r in range(world):
+        total = np.asarray(res[r]["total"])
+        breakdown = np.asarray(res[r]["breakdown"])
+        if not (np.array_equal(total, one_total)
+                and np.array_equal(breakdown, one_breakdown)):
+            same_tables = False
+            failures.append(f"{tag} eval, rank {r}: tables differ from the "
+                            f"one-rank run: {total.tolist()} vs "
+                            f"{one_total.tolist()}")
+        n_recs += res[r]["eval_questions"]
+    if n_recs != n_q:
+        failures.append(f"{tag} eval: {n_recs} prediction records over the "
+                        f"ranks' files, want {n_q}")
+    say("parallel", f"cli.evaluate over {tag}, {n_q} questions "
+                    f"({', '.join(str(r_['eval_questions']) for r_ in res)} "
+                    f"a rank): total and breakdown tables "
+                    f"{'equal' if same_tables else 'NOT equal'} to the "
+                    f"one-rank run's; {n_recs} prediction records in "
+                    f"ranks.jsonl.rank* ({card})")
+
+    # (c) the detector step
+    det = ref["det"]
+    if not (det["loss_rel"] <= 1e-5 and det["grad"] <= 1e-4
+            and det["param"] <= 1e-6):
+        failures.append(f"{tag} detector step: loss rel {det['loss_rel']}, "
+                        f"gradient of {det['grad_of']} off by {det['grad']}, "
+                        f"parameters by {det['param']}")
+    k3 = [r_["det_k3"] for r_ in res]
+    if k3 != [{n: 1 for n in ROI_SHAPES}] * world:
+        failures.append(f"{tag} detector step: K3 launches per rank {k3}, "
+                        f"want one of each shape a rank")
+    flips = [r_["det_flips"] for r_ in res]
+    flip_max = max(r_["det_flip_max"] for r_ in res)
+    if flip_max >= PAR_KINK:
+        failures.append(f"{tag} detector step: a ReLU input {flip_max} from "
+                        f"zero took the other side than in the one-rank "
+                        f"step (limit {PAR_KINK:g})")
+    untied = [r_["det_props"][1] for r_ in res]
+    if any(untied):
+        failures.append(f"{tag} detector step: proposals of the ranks' own "
+                        f"differ from the one-rank step's at no tie: "
+                        f"{untied} a rank")
+    say("parallel", f"{tag}, fp32 detector step at one image a rank "
+                    f"({CANVAS}^2 canvas) against the one-rank step at batch"
+                    f" {world} (the trunk over the batch), the same sampling "
+                    f"noise, each rank replaying its image's ReLU signs and "
+                    f"proposals of the one-rank step: losses within "
+                    f"{det['loss_rel']:.3g} relative (limit 1e-5), worst "
+                    f"gradient {det['grad_of']} off by {det['grad']:.3g} of "
+                    f"its largest magnitude (limit 1e-4), parameters after "
+                    f"SGD within {det['param']:.3g} (limit 1e-6); the ranks' "
+                    f"own ReLU inputs on the other side {flips} (each within "
+                    f"{flip_max:.3g} of zero, limit {PAR_KINK:g}), their own "
+                    f"proposal rows not among its "
+                    f"{[r_['det_props'][0] for r_ in res]}, rows that differ "
+                    f"at no NMS or top-k tie {untied}; K3 launches per rank "
+                    f"{k3} ({card})")
+    say("parallel", f"{tag}: {wall:.1f} s wall (the processes' start, rank "
+                    f"0's two one-rank reference steps, the three runs); "
+                    f"kernels built again in the children: "
+                    f"{[r_['built'] for r_ in res]} ({card})")
+    if any(r_["built"] for r_ in res):
+        failures.append(f"{tag}: kernels built again")
+    paths = (f"{backend} QA step", f"{backend} eval", f"{backend} QA step K2")
+    out = {p: {} for p in paths + (f"{backend} detector",)}
+    for r_ in res:
+        for path, key in zip(paths, ("qa_k1", "eval_k1", "qa_k2")):
+            for name, c in r_[key].items():
+                out[path][(name, "float32")] = (
+                    out[path].get((name, "float32"), 0) + c)
+        for name, c in r_["det_k3"].items():
+            out[f"{backend} detector"][name] = (
+                out[f"{backend} detector"].get(name, 0) + c)
+    return out
+
+
+def parallel_phase(card, attention, batch, params, failures):
+    """Phase 10: remat on the train path, cli.train -ddp under torchrun,
+    and two gloo ranks on the one card. Returns the launches of each of
+    its paths."""
+    import torch
+    counts = remat_steps(attention, batch, params, card, failures)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="crct_par_") as root:
+        counts.update(ddp_train(os.path.join(root, "ddp"), failures, card))
+        counts.update(rank_group(batch, params, os.path.join(root, "gloo"),
+                                 failures, card, 2, "gloo"))
+    return counts
+
+
+def cards_phase(card, batch, params, failures):
+    """Across the cards of one machine (run it alone, on 2 or more): cli.train
+    -ddp under torchrun over every card (nccl), the rank group of the
+    parallel phase over nccl with one rank a card, and a QAScorer with a
+    replica on each card answering as one card does."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        failures.append(f"cards: {n} card visible, the phase needs 2 or more")
+        return
+    with tempfile.TemporaryDirectory(prefix="crct_cards_") as root:
+        ddp_train(os.path.join(root, "ddp"), failures, card, nproc=n)
+        rank_group(batch, params, os.path.join(root, "nccl"), failures, card,
+                   n, "nccl")
+        serve_over_cards(os.path.join(root, "serve"), failures, card, n)
+
+
+def serve_over_cards(root, failures, card, n):
+    """QAScorer over cuda:0..n-1 (one replica a card, each dispatch split
+    across them) against QAScorer on cuda:0, on the eval split's questions:
+    every candidate's NSP probability within 1e-6, the same answers apart
+    from ties within 1e-6 (random weights put candidates ~1e-7 apart)."""
+    import torch
+
+    from crct_tpu_torch.config import read_command_line
+    from crct_tpu_torch.data.dataset import ChartQADataset
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.serve import QAScorer
+    from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
+
+    params = read_command_line(eval_data(root) + ["-save_name", "serve"])
+    ds = ChartQADataset(params, params["eval_set"],
+                        init_split=params["eval_set"])
+    ds.get_all_answers = True
+    model = build_model(params, device="cuda:0")
+    load_weights(model, load_torch_checkpoint(params["start_checkpoint"]))
+    qas = ds.qa[params["eval_set"]][:24]
+    one = QAScorer(params, ds, model=model, device="cuda:0")
+    many = QAScorer(params, ds, model=model,
+                    device=[f"cuda:{i}" for i in range(n)])
+    # the first call of each warms its cards (cuBLAS handles, the
+    # kernels' attributes); the times are the median of the calls after it
+    want = one.score(qas, top=1000)
+    got = many.score(qas, top=1000)
+    worst, ties = compare_scoring(got, want, failures, tol=1e-6)
+    if many.chunk % n:
+        failures.append(f"serving over {n} cards: chunk {many.chunk}")
+
+    def median_ms(scorer):
+        ms = []
+        for _ in range(SERVE_CALLS):
+            t0 = time.perf_counter()
+            scorer.score(qas, top=1000)
+            for i in range(n):
+                torch.cuda.synchronize(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)[len(ms) // 2], ms
+
+    one_ms, one_all = median_ms(one)
+    many_ms, many_all = median_ms(many)
+    say("parallel", f"QAScorer over {n} cards ({many.chunk} rows a dispatch"
+                    f", {many.chunk // n} a card) against one card, "
+                    f"{len(qas)} questions: every candidate's NSP within "
+                    f"{worst:.3g} (limit 1e-6), the answers equal apart from"
+                    f" {ties} ties within 1e-6; score() after a warm-up call"
+                    f" each, median of {SERVE_CALLS}: {many_ms:.1f} ms "
+                    f"({', '.join(f'{t:.1f}' for t in many_all)}) against "
+                    f"{one_ms:.1f} ms on one card "
+                    f"({', '.join(f'{t:.1f}' for t in one_all)}) ({card})")
+
+
+def child_ddp_train(tree, out_json, argv):
+    """torchrun's worker: cli.train.main, the kernels' launches of its
+    steps and of its in-train eval apart, its checkpoint (rank 0 writes
+    them)."""
+    import glob
+
+    sys.path.insert(0, tree)
+    import torch
+
+    from crct_tpu_torch import parallel
+    from crct_tpu_torch.cli import train as cli_train
+    from crct_tpu_torch.ops import attention, build
+    from crct_tpu_torch.train import train_loop
+
+    def k1():
+        return {n: (attention.LAUNCHES[("bfloat16", *s)],
+                    attention.BWD_LAUNCHES[("bfloat16", *s)])
+                for n, s in SHAPES.items()}
+
+    evals, losses, counted = {}, [], []
+    real_eval, real_step = cli_train.in_train_eval, train_loop.Trainer.run_step
+
+    def counted_eval(trainer, dataset, epoch_id):
+        before = k1()
+        total = real_eval(trainer, dataset, epoch_id)
+        torch.cuda.synchronize()
+        after = k1()
+        evals.update({n: after[n][0] - before[n][0] for n in SHAPES})
+        counted.append(int(total[4, 1]))
+        return total
+
+    def step(self, b):
+        m = real_step(self, b)
+        losses.append(round(float(m[0]), 5))
+        return m
+
+    attention.reset_launch_count()
+    with mock.patch.object(cli_train, "in_train_eval", counted_eval), \
+            mock.patch.object(train_loop.Trainer, "run_step", step):
+        trainer = cli_train.main(argv)
+    if parallel.rank() != 0:
+        return 0
+    total = k1()
+    ckpts = glob.glob(os.path.join(trainer.params_dict["save_path"],
+                                   "plotqa_encoder_0_*.ckpt"))
+    with open(out_json, "w") as f:
+        json.dump({"steps": trainer.step, "world": parallel.world_size(),
+                   "losses": losses, "built": sorted(build.BUILD_LOG),
+                   "train": {n: (total[n][0] - evals.get(n, 0), total[n][1])
+                             for n in SHAPES},
+                   "eval": evals, "eval_count": counted[0],
+                   "checkpoint": sorted(ckpts)[-1]}, f)
+    return 0
+
+
+def child_ranks(tree, root, rank, world, port, backend):
+    """One rank of rank_group. Rank 0 first takes the one-rank reference
+    steps, before the group forms."""
+    import hashlib
+    import io
+    from contextlib import redirect_stdout
+
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from crct_tpu_torch import parallel
+    from crct_tpu_torch.cli import evaluate as cli_eval
+    from crct_tpu_torch.config import CRCTModelConfig
+    from crct_tpu_torch.detector import boxes, mask_rcnn
+    from crct_tpu_torch.detector.trainer import DetectorTrainer
+    from crct_tpu_torch.models import layers
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.ops import attention, build
+    from crct_tpu_torch.ops import roi_align_kernel as rk
+    from crct_tpu_torch.train.optimizer import AdamW
+    from crct_tpu_torch.train.train_loop import device_batch, make_train_step
+
+    device = f"cuda:{rank if backend == 'nccl' else 0}"
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers.DropoutRNG.dropout = lambda self, x, p: x     # dropout 0
+    with open(os.path.join(root, "case.json")) as f:
+        case = json.load(f)
+    params = dict(case["params"], bf16=False)
+    cfg = CRCTModelConfig.from_json_file(os.path.join(tree, "config",
+                                                      "vilbert.json"))
+    for k in ("hidden_dropout_prob", "attention_probs_dropout_prob",
+              "v_hidden_dropout_prob", "v_attention_probs_dropout_prob"):
+        setattr(cfg, k, 0.0)
+    qa = dict(np.load(os.path.join(root, "qa_batch.npz")))
+    det = dict(np.load(os.path.join(root, "det_batch.npz")))
+
+    def qa_step(rows):
+        model = build_model(params, config=cfg, device=device, train=True)
+        m = make_train_step(model, AdamW(list(model.named_parameters()),
+                                         params, 12))(
+            device_batch({k: v[rows] for k, v in qa.items()}, device),
+            torch.Generator())
+        torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return float(m[0]), grads
+
+    def det_step(draws, kinks=None):
+        """One fp32 detector step over this rank's images. With ``draws``
+        None it records the samplers' noise, every ReLU's sign and each
+        image's proposals (the one-rank reference); else it replays the
+        noise and, from ``kinks``, the reference's ReLU signs and proposals
+        for its one image, counting the ReLU inputs and proposal rows of its
+        own that differ from them, and the rows that differ at no NMS or
+        top-k tie (diff_detections)."""
+        real = boxes._draw_uniform
+        record = draws is None
+        draws = [] if record else list(draws)
+        signs, props, seen = [], [], {"image": None, "flips": 0,
+                                      "flip_max": 0.0, "props": 0,
+                                      "props_untied": 0}
+        replay = None if kinks is None else iter(kinks["signs"])
+        real_relu, real_prop = F.relu, mask_rcnn.propose
+        real_losses = mask_rcnn.MaskRCNN._train_losses
+
+        def draw(gen, n, dev):
+            if record:
+                draws.append(real(gen, n, dev))
+                return draws[-1]
+            return draws.pop(0).to(dev)
+
+        def relu(x, inplace=False):
+            if replay is None:
+                signs.append((seen["image"], x.detach() > 0))
+                return real_relu(x)
+            want = next(replay).to(x.device)
+            if want.shape != x.shape:
+                raise RuntimeError(f"ReLU replay: {tuple(want.shape)} "
+                                   f"recorded, {tuple(x.shape)} here")
+            flip = want != (x.detach() > 0)
+            if flip.any():
+                seen["flips"] += int(flip.sum())
+                seen["flip_max"] = max(seen["flip_max"],
+                                       x.detach()[flip].abs().max().item())
+            return torch.where(want, x, torch.zeros_like(x))
+
+        def as_dets(out):
+            b, sc, v = (t.float().cpu().numpy() for t in out)
+            return {"boxes": b, "scores": sc, "valid": v.astype(bool),
+                    "classes": np.zeros(len(b), np.int64)}
+
+        def propose(*a, **kw):
+            out = real_prop(*a, **kw)
+            if kinks is None:
+                props.append([t.cpu() for t in out])
+                return out
+            want = kinks["proposals"]
+            # each level's pre-NMS top-k boundary score, as proposals_of
+            edges = [torch.sigmoid(torch.sort(x.float(), descending=True)
+                                   .values[min(999, x.numel() - 1)]).item()
+                     for x in a[0]]
+            _, odd, _, _ = diff_detections(as_dets(out), as_dets(want), 0.0,
+                                           0.7, len(want[0]), edges)
+            seen["props"] += sum(side == "a" for side, _, _, _ in odd)
+            seen["props_untied"] += sum(why is None for _, _, why, _ in odd)
+            return tuple(t.to(out[0].device) for t in want)
+
+        def train_losses(self, *a, **kw):
+            seen["image"] = 0 if seen["image"] is None else seen["image"] + 1
+            return real_losses(self, *a, **kw)
+
+        trainer = DetectorTrainer(num_classes=DET_CLASSES, with_mask=True,
+                                  depth=50, seed=SEED, batch_size=world,
+                                  device=device)
+        before = {n: rk.LAUNCHES[(P, C_FPN)]
+                  for n, (P, _) in ROI_SHAPES.items()}
+        with mock.patch.object(boxes, "_draw_uniform", draw), \
+                mock.patch.object(F, "relu", relu), \
+                mock.patch.object(mask_rcnn, "propose", propose), \
+                mock.patch.object(mask_rcnn.MaskRCNN, "_train_losses",
+                                  train_losses):
+            losses = trainer.run_step(det)
+        torch.cuda.synchronize()
+        k3 = {n: rk.LAUNCHES[(P, C_FPN)] - before[n]
+              for n, (P, _) in ROI_SHAPES.items()}
+        per_image = None
+        if record:
+            # image i's signs: its slice of the batched trunk and RPN
+            # head's, then its own heads'
+            per_image = [{"signs": [m[i:i + 1].cpu() if tag is None
+                                    else m.cpu()
+                                    for tag, m in signs
+                                    if tag is None or tag == i],
+                          "proposals": props[i]} for i in range(world)]
+        return (losses, {n: p.grad.clone()
+                         for n, p in trainer.model.named_parameters()},
+                {n: p.detach().clone()
+                 for n, p in trainer.model.named_parameters()},
+                k3, seen, draws if record else None, per_image)
+
+    ref = {}
+    if rank == 0:
+        want_loss, want = qa_step(slice(None))
+        want = {n: g.cpu() for n, g in want.items()}
+        torch.cuda.empty_cache()
+        # the production one-rank step over the whole batch
+        d_losses, d_grads, d_params, _, _, draws, kinks = det_step(None)
+        d_grads = {n: g.cpu() for n, g in d_grads.items()}
+        d_params = {n: p.cpu() for n, p in d_params.items()}
+        torch.save([d.cpu() for d in draws], os.path.join(root, "draws.pt"))
+        for i, k in enumerate(kinks):
+            torch.save(k, os.path.join(root, f"kinks_{i}.pt"))
+        del kinks
+        torch.cuda.empty_cache()
+
+    parallel.init_distributed(world, rank,
+                              init_method=f"tcp://127.0.0.1:{port}",
+                              device=device, backend=backend)
+    res = {"built": sorted(build.BUILD_LOG)}
+
+    # (a) the QA step at local batch B_TRAIN / world
+    local = B_TRAIN // world
+    attention.reset_launch_count()
+    loss, grads = qa_step(slice(rank * local, (rank + 1) * local))
+    res["qa_k1"] = {n: attention.LAUNCHES[("float32", *s)]
+                    for n, s in SHAPES.items()}
+    res["qa_k2"] = {n: attention.BWD_LAUNCHES[("float32", *s)]
+                    for n, s in SHAPES.items()}
+    h = hashlib.sha256()
+    for n in sorted(grads):
+        h.update(grads[n].float().cpu().numpy().tobytes())
+    res["qa_digest"] = h.hexdigest()
+    if rank == 0:
+        worst, worst_name, equal = 0.0, "", 0
+        for n, w in want.items():
+            g = grads[n].float().cpu()
+            d = (g - w).abs().max().item() / max(1.0, w.abs().max().item())
+            equal += torch.equal(g, w)
+            if d >= worst:
+                worst, worst_name = d, n
+        ref["qa"] = {"loss": loss, "want_loss": want_loss,
+                     "loss_rel": abs(loss - want_loss) / abs(want_loss),
+                     "grad": worst, "grad_of": worst_name, "equal": equal,
+                     "n": len(want)}
+    # one more all-reduce of the gradients, timed alone
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    parallel.allreduce_gradients(grads.values())
+    torch.cuda.synchronize()
+    if rank == 0:
+        ref["qa"]["reduce_ms"] = (time.perf_counter() - t) * 1e3
+    del grads
+    torch.cuda.empty_cache()
+
+    # (b) cli.evaluate over the process group
+    attention.reset_launch_count()
+    with redirect_stdout(io.StringIO()):
+        total, breakdown = cli_eval.main(case["eval_argv"] + [
+            "-cuda_num", device.split(":")[1]])
+    res["total"], res["breakdown"] = total.tolist(), breakdown.tolist()
+    res["eval_k1"] = {n: attention.LAUNCHES[("float32", *s)]
+                      for n, s in SHAPES.items()}
+    with open(case["eval_argv"][-1] + f".rank{rank}") as f:
+        res["eval_questions"] = sum(1 for _ in f)
+    torch.cuda.empty_cache()
+
+    # (c) the detector step, one image a rank, the reference's noise
+    draws = torch.load(os.path.join(root, "draws.pt"))
+    losses, grads, new, res["det_k3"], seen, _, _ = det_step(
+        draws[2 * rank:2 * rank + 2],
+        torch.load(os.path.join(root, f"kinks_{rank}.pt")))
+    res["det_flips"], res["det_flip_max"] = seen["flips"], seen["flip_max"]
+    res["det_props"] = (seen["props"], seen["props_untied"])
+    if rank == 0:
+        rel = max(abs(float(losses[k]) - float(d_losses[k]))
+                  / max(abs(float(d_losses[k])), 1e-12) for k in d_losses)
+        worst, worst_name = 0.0, ""
+        for n, w in d_grads.items():
+            r_ = ((grads[n].cpu() - w).abs().max()
+                  / w.abs().max().clamp(min=1e-6)).item()
+            if r_ >= worst:
+                worst, worst_name = r_, n
+        ref["det"] = {"loss_rel": rel, "grad": worst, "grad_of": worst_name,
+                      "param": max((p.cpu() - d_params[n]).abs().max().item()
+                                   for n, p in new.items())}
+        res["reference"] = ref
+    with open(os.path.join(root, f"rank_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    parallel.destroy()
+    return 0
+
+
 def kernel_phase(card, attention, build, roi_align, rk, failures):
     """Phase 3: every kernel against its plain version, timed; the rows of
     the kernels' JSON line by (kernel, shape, dtype)."""
@@ -3150,13 +4007,14 @@ def main():
                     help="the checkout whose crct_tpu_torch is driven (default:"
                          " this script's)")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated, of {', '.join(PHASES)} and times; "
+                    help=f"comma-separated, of {', '.join(PHASES)}, times "
+                         f"and cards; "
                          f"the result line is printed only when all run")
     ap.add_argument("--seeds", type=int, default=1,
                     help="generator seeds of each cross-check step")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    unknown = set(phases) - set(PHASES) - {"times"}
+    unknown = set(phases) - set(PHASES) - {"times", "cards"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     whole = set(phases) >= set(PHASES)
@@ -3241,6 +4099,13 @@ def main():
         roi_counts = detector(card, attention, roi_align, rk, failures)
     if "ingest" in phases:
         ingest_launches = ingest_phase(card, attention, failures)
+    if "parallel" in phases or "cards" in phases:
+        if batch is None:
+            batch, params = train_batch()
+    if "parallel" in phases:
+        par = parallel_phase(card, attention, batch, params, failures)
+    if "cards" in phases:
+        cards_phase(card, batch, params, failures)
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -3251,6 +4116,11 @@ def main():
     # phase's fp32 paths and the ingest phase's answers, bf16 rows the (bf16) training run's, its
     # in-train eval's and eval -bf16's; no main path runs K2 in fp32 (the
     # kernel phase and the fp32 cross-check step do)
+    # the parallel phase's paths: K1 in bf16 in the remat steps and the
+    # -ddp run, in fp32 in the gloo ranks' QA step and eval; K2 likewise
+    par_k1 = {p: c for p, c in par.items()
+              if not p.endswith("K2") and p != "gloo detector"}
+    par_k2 = {p[:-3]: c for p, c in par.items() if p.endswith("K2")}
     for (kname, dname), row in fwd_rows.items():
         paths = {p: c[(dname, kname)] for p, c in eval_counts.items()
                  if c.get((dname, kname))}
@@ -3260,18 +4130,25 @@ def main():
         else:
             paths = {"train": train_counts[kname][0],
                      "in-train eval": in_train_k1[kname], **paths}
+        paths.update({p: c[(kname, dname)] for p, c in par_k1.items()
+                      if c.get((kname, dname))})
         row["path"] = ", ".join(paths)
         row["launches"] = sum(paths.values())
     for (kname, dname), row in bwd_rows.items():
-        row["path"] = "none" if dname == "float32" else "train"
-        row["launches"] = 0 if dname == "float32" else train_counts[kname][1]
+        paths = {} if dname == "float32" else {
+            "train": train_counts[kname][1]}
+        paths.update({p: c[(kname, dname)] for p, c in par_k2.items()
+                      if c.get((kname, dname))})
+        row["path"] = ", ".join(paths) or "none"
+        row["launches"] = sum(paths.values())
     kernels = list(fwd_rows.values()) + list(bwd_rows.values())
     # the detector trains in fp32: no main path runs K3 in bf16
     for row in roi_rows:
         shape = row["name"][len("roi_align_bwd["):].split(",")[0].rstrip("]")
         fp32 = row["dtype"] == "float32"
-        row["path"] = "detector train" if fp32 else "none"
-        row["launches"] = roi_counts[shape] if fp32 else 0
+        row["path"] = ("detector train, gloo detector" if fp32 else "none")
+        row["launches"] = (roi_counts[shape] + par["gloo detector"].get(
+            shape, 0)) if fp32 else 0
     kernels += roi_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3280,5 +4157,16 @@ def main():
     return 0
 
 
+def child_main(args):
+    """The parallel phase's children: ``ddp_train TREE OUT_JSON -- ARGV``
+    (started by torchrun) or ``ranks TREE ROOT RANK WORLD PORT BACKEND``."""
+    if args[0] == "ddp_train":
+        return child_ddp_train(args[1], args[2], args[args.index("--") + 1:])
+    return child_ranks(args[1], args[2], int(args[3]), int(args[4]), args[5],
+                       args[6])
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2:]))
     sys.exit(main())

@@ -12,6 +12,14 @@ plotqa_colorless/dvqa, R101 for figure_qa. ``--load-weights`` takes a port
 detector checkpoint, a torch ``.pth`` or a Detectron2 model-zoo ``.pkl``.
 ``--bf16`` trains under bf16 autocast over fp32 parameters (box decoding
 and losses stay fp32).
+
+Over N cards, one process each, ``--batch-size`` images a step in all
+(the world size must divide it):
+
+    torchrun --nproc_per_node 2 -m crct_tpu_torch.cli.detector_train \
+        --annotations train.json --image-dir pngs/ --batch-size 2
+
+Rank 0 alone logs, evaluates (``--test``) and saves checkpoints.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import json
 import os
 import time
 
+from crct_tpu_torch import parallel
 from crct_tpu_torch.utils.device import resolve_device
 
 
@@ -74,10 +83,14 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    # torchrun's environment forms the process group (one rank a card)
+    where = {"device": args.device, "cuda_num": args.cuda_num}
+    parallel.maybe_initialize_distributed(where)
     device = args.device
-    if device == "cuda" and args.cuda_num >= 0:
-        device = f"cuda:{args.cuda_num}"
+    if device == "cuda" and where["cuda_num"] >= 0:
+        device = f"cuda:{where['cuda_num']}"
     device = resolve_device(device)
+    rank0 = parallel.rank() == 0
 
     from crct_tpu_torch.detector.coco import CocoDataset
     from crct_tpu_torch.detector.convert import (detector_file_meta,
@@ -100,15 +113,18 @@ def main(argv=None):
                      max_boxes=args.max_boxes, max_size=args.image_size,
                      with_masks=with_mask, pixel_mean=meta["pixel_mean"],
                      pixel_std=meta["pixel_std"], augment=augment)
-    if augment:
+    if augment and rank0:
         print(f"augmentation: hflip p=0.5 + short-edge {ds.train_scales} "
               f"(fixed {args.image_size}px canvas)")
-    print(f"{len(ds)} images, {len(ds.categories)} classes, {device}")
+    if rank0:
+        print(f"{len(ds)} images, {len(ds.categories)} classes, {device}, "
+              f"{parallel.world_size()} rank(s)")
     freeze_at = args.freeze_at
     if freeze_at is None:
         freeze_at = 2 if args.load_weights else 0
     trainer = DetectorTrainer(num_classes=len(ds.categories),
                               with_mask=with_mask, depth=depth,
+                              batch_size=args.batch_size,
                               base_lr=args.base_lr,
                               stride_in_1x1=stride_in_1x1,
                               freeze_at=freeze_at, bf16=args.bf16,
@@ -117,6 +133,8 @@ def main(argv=None):
         restore_detector_params(trainer.model, args.load_weights)
 
     if args.test:
+        if not rank0:
+            return None
         trainer.model.eval()
         metrics = coco_evaluate(trainer.model, ds,
                                 max_images=args.eval_images or None)
@@ -130,11 +148,12 @@ def main(argv=None):
     t0 = time.time()
     for it, batch in enumerate(batches):
         losses = trainer.run_step(batch)
-        if it % 20 == 0:
+        if it % 20 == 0 and rank0:
             msg = " ".join(f"{k}:{v:.4f}" for k, v in losses.items())
             print(f"[{it}/{args.max_iter}] [{time.time() - t0:.1f}s] {msg}",
                   flush=True)
-        if (it + 1) % args.checkpoint_every == 0 or it + 1 == args.max_iter:
+        if rank0 and ((it + 1) % args.checkpoint_every == 0
+                      or it + 1 == args.max_iter):
             path = os.path.join(args.output_dir,
                                 detector_checkpoint_name(it + 1))
             # extraction and serving rebuild the same stride placement,

@@ -14,6 +14,11 @@ answers.jsonl`` also writes one JSON record per question (answer,
 cls_output, reg_output, confidence, gt_answer). ``-fast_scorer`` scores
 through the fast-scorer head of a ``cli.train_fast_scorer`` checkpoint, and
 ``-fast_scorer_topk K`` rescores its K best candidates with the full model.
+
+Over N cards, one process each: ``torchrun --nproc_per_node N -m
+crct_tpu_torch.cli.evaluate ...``. Each rank scores its shard of the
+questions and writes its own result CSV; the tables are summed over the
+ranks, and ``-predictions_out`` is written per rank to ``<path>.rank{r}``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import pprint
 
 import numpy as np
 
+from crct_tpu_torch import parallel
 from crct_tpu_torch.config import read_command_line
 from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
 from crct_tpu_torch.models.crct import build_model
@@ -53,6 +59,7 @@ def load_eval_model(params, device):
 
 def main(argv=None):
     params = read_command_line(argv)
+    parallel.maybe_initialize_distributed(params)
     device = params_device(params)
     pprint.pprint({k: v for k, v in params.items() if k != "dvqa_floats"})
 
@@ -71,12 +78,19 @@ def main(argv=None):
     loader = DataLoader(dataset, batch_size=resolve_eval_question_batch(params),
                         shuffle=False, drop_last=False,
                         num_workers=params.get("num_workers", 8) or 1,
-                        indices=indices)
+                        indices=indices,
+                        # each rank its shard of the questions
+                        # (DistributedSampler parity, evaluation.py:153)
+                        num_shards=parallel.world_size(),
+                        shard_index=parallel.rank())
     model = load_eval_model(params, device)
 
     on_predictions = pred_file = None
     if params.get("predictions_out"):
-        pred_file = open(params["predictions_out"], "a" if cont_eval else "w")
+        path = params["predictions_out"]
+        if parallel.world_size() > 1:    # one file a rank, like the CSVs
+            path += f".rank{parallel.rank()}"
+        pred_file = open(path, "a" if cont_eval else "w")
 
         def on_predictions(recs):
             for r in recs:
@@ -96,7 +110,8 @@ def main(argv=None):
     print_acc_table(print, total)
     if "plotqa" in params["dataset"]:
         print_breakdown_table(params, print, breakdown)
-        make_histogram_png(params, histogram)
+        if parallel.rank() == 0:    # one writer of the shared PNG
+            make_histogram_png(params, histogram)
     print("Done evaluation", flush=True)
     return total, breakdown
 

@@ -16,7 +16,8 @@ fast-scorer head of a ``cli.train_fast_scorer`` checkpoint.
 ``.pth``, a Detectron2 ``.pkl`` or ``none``) enables POST /v1/figures: chart
 PNGs are ingested by the detector on the same device. With
 ``-serve_no_dataset`` the server loads no feature shards and serves only
-ingested figures.
+ingested figures. ``-mesh_shape N`` serves over the first N cards: a
+replica of the model on each, every dispatch's rows split across them.
 """
 
 from __future__ import annotations
@@ -24,12 +25,29 @@ from __future__ import annotations
 import signal
 import threading
 
+import torch
+
 from crct_tpu_torch.config import read_command_line
 from crct_tpu_torch.serve import make_server
 from crct_tpu_torch.utils.device import params_device
 
 # flags of the JAX server that would change what the port serves
-NOT_PORTED = ("pallas", "mesh_shape")
+NOT_PORTED = ("pallas",)
+
+
+def serving_devices(params):
+    """The device of ``-device`` / ``-cuda_num``, or with ``-mesh_shape N``
+    the first N cards (N replicas on the CPU with ``-device cpu``)."""
+    if not params.get("mesh_shape"):
+        return params_device(params)
+    n = int(params["mesh_shape"])
+    if params["device"] == "cpu":
+        return ["cpu"] * n
+    visible = torch.cuda.device_count()
+    if n > visible:
+        raise SystemExit(f"-mesh_shape {n}: only {visible} cards are "
+                         f"visible")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def main(argv=None):
@@ -43,7 +61,7 @@ def main(argv=None):
         raise SystemExit("-serve_no_dataset needs -serve_detector_weights: "
                          "with no feature shards, figures can only arrive "
                          "through POST /v1/figures ingestion")
-    device = params_device(params)
+    device = serving_devices(params)
     print(f"Loading the model on {device} and warming up...", flush=True)
     server = make_server(params, device=device)
     host, port = server.server_address[:2]

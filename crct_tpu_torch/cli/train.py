@@ -5,9 +5,17 @@ Trains on the card unless ``-device cpu`` is given:
     python -m crct_tpu_torch.cli.train -qa_file qa_pairs_V1_train.npy \\
         -dataset_config config/plotqa.json -batch_size 80 -bf16
 
-``-cuda_num N`` picks the card. After each epoch the model is evaluated on
-at most 500 questions of ``-eval_set`` by the full protocol (``-no_eval``
-skips it); ``-ddp`` (one process per card) is not ported yet. With
+``-cuda_num N`` picks the card. Data parallelism runs one process per
+card, started by torchrun (or by hand with ``-dist_url tcp://host:port
+-world_size N -rank r``), each on ``-batch_size`` rows a step:
+
+    torchrun --nproc_per_node 4 -m crct_tpu_torch.cli.train -ddp \
+        -qa_file qa_pairs_V1_train.npy -dataset_config config/plotqa.json \
+        -batch_size 80 -bf16
+
+``-mesh_shape``, when given, must equal the world size. After each epoch
+the model is evaluated on at most 500 questions of ``-eval_set`` by the full
+protocol, each rank scoring its shard of them (``-no_eval`` skips it). With
 ``-fast_scorer`` the trained model has no fast-scorer head, as in the JAX
 trainer: the head trains afterwards (``cli.train_fast_scorer``).
 ``-start_checkpoint`` takes a torch checkpoint in the reference layout: the
@@ -20,6 +28,7 @@ import pprint
 
 import numpy as np
 
+from crct_tpu_torch import parallel
 from crct_tpu_torch.config import read_command_line
 from crct_tpu_torch.data.dataset import ChartQADataset, DataLoader
 from crct_tpu_torch.train.eval_loop import (evaluate, print_acc_table,
@@ -29,13 +38,15 @@ from crct_tpu_torch.train.train_loop import _maybe_tensorboard, run_training
 from crct_tpu_torch.utils.device import params_device
 from crct_tpu_torch.utils.logging import log_line
 
-# flags of the JAX trainer whose paths the port does not have yet
-NOT_PORTED = ("ddp", "mesh_shape", "pallas")
+# flags of the JAX trainer whose paths the port does not have
+NOT_PORTED = ("pallas",)
 
 
 def in_train_eval(trainer, dataset, epoch_id):
     """<=500-sample validation eval each epoch (reference train.py:294-338),
-    on the training model (scored in eval mode in its compute dtype)."""
+    on the training model (scored in eval mode in its compute dtype). Each
+    rank scores its shard of the sample and the tables are summed over the
+    ranks: the totals of one process that scores them all."""
     params = dict(trainer.params_dict)
     # in-train eval always uses the reference protocol: a training model
     # has no fast-scorer head
@@ -46,7 +57,9 @@ def in_train_eval(trainer, dataset, epoch_id):
     idx = rng.permutation(len(dataset))[:500]
     loader = DataLoader(dataset, batch_size=resolve_eval_question_batch(params),
                         shuffle=False, num_workers=params.get("num_workers", 8) or 1,
-                        drop_last=False, indices=idx)
+                        drop_last=False, indices=idx,
+                        num_shards=parallel.world_size(),
+                        shard_index=parallel.rank())
     try:
         total, breakdown, _ = evaluate(
             loader, dataset, params, trainer.model,
@@ -87,6 +100,12 @@ def main(argv=None):
         if params.get(flag):
             raise SystemExit(f"-{flag} is not yet ported to the PyTorch "
                              f"trainer")
+    parallel.maybe_initialize_distributed(params)
+    if params.get("mesh_shape") and \
+            int(params["mesh_shape"]) != parallel.world_size():
+        raise SystemExit(f"-mesh_shape {params['mesh_shape']} but the world "
+                         f"has {parallel.world_size()} ranks: one rank "
+                         f"drives one card")
     device = params_device(params)
     pprint.pprint({k: v for k, v in params.items() if k != "dvqa_floats"})
     splits = ["train"] if params["pretrain"] else ["train", params["eval_set"]]

@@ -85,6 +85,9 @@ class CRCTModelConfig:
     layer_norm_eps: float = 1e-12
     # compute dtype: "float32" | "bfloat16" (no reference equivalent)
     dtype: str = "float32"
+    # recompute each encoder block in the backward instead of keeping its
+    # activations (torch.utils.checkpoint; JAX nn.remat)
+    remat: bool = False
 
     def __post_init__(self) -> None:
         self.v_biattention_id = tuple(self.v_biattention_id)
@@ -145,10 +148,11 @@ def read_command_line(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     # an explicit value (the reference default was 10, CRCT/options.py) for
     # protocol-parity runs
     parser.add_argument('-eval_batch_size', default=None, type=int)
-    # DDP-era flags kept for CLI compatibility; data parallelism is not
-    # ported yet
+    # data parallelism: one process per card (torchrun, or -dist_url
+    # tcp://host:port with -world_size and -rank)
     parser.add_argument('-ddp', action='store_true',
-                        help='not ported: data parallelism')
+                        help='data parallelism over the processes of a '
+                             'torch.distributed group')
     parser.add_argument('-rank', type=int, default=0)
     parser.add_argument('-dist_url', default='')
     parser.add_argument('-world_size', type=int, default=1)
@@ -192,12 +196,13 @@ def read_command_line(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                         help='WordPiece vocab.txt (bert-base-uncased layout)')
     parser.add_argument('-bf16', action='store_true',
                         help='bfloat16 activations')
-    # flags of the JAX package that the port accepts but does not serve yet
+    # a flag of the JAX package that the port accepts and refuses
     parser.add_argument('-pallas', action='store_true',
                         help='not ported: the CUDA attention kernel always '
                              'runs on the card')
     parser.add_argument('-mesh_shape', type=str, default='',
-                        help='not ported: data parallelism')
+                        help='cli.train: must equal the world size; '
+                             'cli.serve: serve over the first N cards')
     parser.add_argument('-profile', action='store_true',
                         help='cli.train: torch.profiler trace of steps 10-15 '
                              'under <save_path>/profile')

@@ -493,16 +493,23 @@ const void* kernel_for(int D) {
   }
 }
 
-// raise a kernel's shared-memory limit once, to the most any launch needs
-// (every layout stays within kMaxSmem)
+// raise a kernel's shared-memory limit once on each device (the limit is a
+// device's), to the most any launch needs (every layout stays within
+// kMaxSmem)
 cudaError_t raise_smem_limit(const void* fn) {
-  static const void* raised[8];
+  static const void* raised_fn[64];
+  static int raised_dev[64];
   static int n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   for (int i = 0; i < n; ++i)
-    if (raised[i] == fn) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess && n < 8) raised[n++] = fn;
+    if (raised_fn[i] == fn && raised_dev[i] == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && n < 64) {
+    raised_fn[n] = fn;
+    raised_dev[n++] = dev;
+  }
   return err;
 }
 

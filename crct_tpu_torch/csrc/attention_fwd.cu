@@ -252,15 +252,18 @@ int launch_dt(const T* q, const T* k, const T* v, const float* mask, T* out,
   const int W = warps_for(Lq);
   const int bk = key_tile(Lk);
   const size_t smem = smem_bytes<T>(W, bk, D);
-  // raise the instantiation's shared-memory limit once, to the most any
-  // launch needs (every launch stays within kMaxSmem)
-  static bool raised = false;
-  if (!raised) {
-    cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, DT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kMaxSmem);
+  // raise the instantiation's shared-memory limit once on each device (the
+  // limit is a device's), to the most any launch needs (every launch stays
+  // within kMaxSmem)
+  static unsigned long long raised = 0;  // bit d: raised on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !(raised & (1ull << dev))) {
+    err = cudaFuncSetAttribute(attention_fwd_kernel<T, DT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    raised = true;
+    if (dev < 64) raised |= 1ull << dev;
   }
   const int vec = (D * sizeof(T)) % 16 == 0 &&
                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;

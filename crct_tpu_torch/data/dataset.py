@@ -199,7 +199,10 @@ def _picklable(params: Dict[str, Any]) -> Dict[str, Any]:
 
 class DataLoader:
     """Loader with seeded per-epoch shuffling and drop_last (the port of
-    ``crct_tpu/data/dataset.py::DataLoader`` on one card).
+    ``crct_tpu/data/dataset.py::DataLoader``). ``num_shards`` /
+    ``shard_index`` replace the reference's ``DistributedSampler``
+    (train.py:55): each rank takes its interleaved slice of the epoch's
+    index list, padded to a multiple of the shards by repeating its head.
 
     With ``num_workers > 1`` batches are built in that many spawned worker
     processes (the reference's torch DataLoader worker model,
@@ -211,7 +214,8 @@ class DataLoader:
 
     def __init__(self, dataset: ChartQADataset, batch_size: int, *,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 8,
-                 drop_last: bool = True,
+                 drop_last: bool = True, num_shards: int = 1,
+                 shard_index: int = 0,
                  indices: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -219,6 +223,8 @@ class DataLoader:
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.epoch = 0
         self.indices = indices
         self._pool = None
@@ -239,6 +245,11 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             idx = rng.permutation(idx)
+        # pad to a multiple of the shards (DistributedSampler semantics)
+        total = -(-len(idx) // self.num_shards) * self.num_shards
+        if total > len(idx) and len(idx) > 0:
+            idx = np.concatenate([idx, idx[:total - len(idx)]])
+        idx = idx[self.shard_index::self.num_shards]
         self._idx_cache = (self.epoch, idx)
         return idx
 

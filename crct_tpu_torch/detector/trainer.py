@@ -1,14 +1,20 @@
-"""Detector training (reference Detector/frcnn.py solver) on one card.
+"""Detector training (reference Detector/frcnn.py solver).
 
 The port of ``crct_tpu/detector/trainer.py``: SGD with momentum 0.9 and
 weight decay 1e-4 at the reference schedule (BASE_LR 2.5e-4, linear warmup
 over 1000 iterations, x0.1 at 10k..70k), over the mean of the images'
 Mask R-CNN losses. The frozen batch norms are buffers, which the optimizer
 never sees. The trainer owns the generator of the samplers' noise (on the
-card, so that sampling needs no host round trip).
+card, so that sampling needs no host round trip). ``batch_multiply`` k is
+``optax.MultiSteps``: the mean of k mini-steps' gradients feeds one update.
 
-Not ported yet: the device mesh (the JAX trainer's data parallelism) and
-``batch_multiply``, which the CLI never sets.
+Under a process group (``parallel``: one rank per card, the JAX trainer's
+mesh) each rank takes its ``batch_size / world`` images of every global
+batch, starts from rank 0's weights, and averages its gradients with the
+others' before the optimizer. Each image's losses divide by that image's
+own sample counts, as the JAX trainer's per-image ``vmap`` does, so the
+mean over the world of the ranks' image means is the JAX step's mean over
+the global batch. Each rank draws its own sampling noise.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from crct_tpu_torch import parallel
 from crct_tpu_torch.detector.mask_rcnn import MaskRCNN, init_detector_weights
 from crct_tpu_torch.utils.device import resolve_device
 
@@ -52,28 +59,48 @@ class DetectorSGD:
     ``make_detector_optimizer``, over the model's parameters: g + wd * p
     into the momentum trace, then p -= lr(count) * trace. A parameter with
     no gradient (a frozen stage behind ``freeze_at``'s detach) takes a zero
-    gradient and is still decayed, as in the JAX package."""
+    gradient and is still decayed, as in the JAX package. With
+    ``every_k > 1`` it is ``optax.MultiSteps`` around that chain: the
+    running mean of ``every_k`` mini-steps' gradients feeds one update, and
+    the schedule counts updates."""
 
     def __init__(self, params: List[torch.nn.Parameter],
                  base_lr: float = 2.5e-4, weight_decay: float = 1e-4,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, every_k: int = 1):
         self.params = list(params)
         self.schedule = detector_lr_schedule(base_lr)
         self.weight_decay = weight_decay
         self.momentum = momentum
+        self.every_k = max(1, int(every_k))
         self.trace = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.every_k > 1 else None)
+        self.count = 0        # updates applied
+        self.mini_step = 0    # gradients accumulated towards the next one
 
     @torch.no_grad()
     def step(self) -> None:
+        """Take this mini-step's gradients; update every ``every_k``-th
+        call."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        if self.every_k > 1:
+            # Welford running mean, as optax.MultiSteps
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step = (self.mini_step + 1) % self.every_k
+            if self.mini_step:
+                return
+            grads = self.acc
         decayed = torch._foreach_add(grads, self.params,
                                      alpha=self.weight_decay)
         torch._foreach_mul_(self.trace, self.momentum)
         torch._foreach_add_(self.trace, decayed)
         torch._foreach_add_(self.params, self.trace,
                             alpha=-self.schedule(self.count))
+        if self.every_k > 1:
+            torch._foreach_zero_(self.acc)
         self.count += 1
 
 
@@ -86,7 +113,10 @@ def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
 def make_detector_train_step(model: MaskRCNN, optimizer: DetectorSGD,
                              bf16: bool = False):
     """One step: the images' mean losses (bf16 autocast over fp32 params
-    when asked; box decoding and losses stay fp32), backward, SGD."""
+    when asked; box decoding and losses stay fp32), backward, the
+    gradients' mean over the process group, SGD. The losses returned are
+    their means over the world."""
+    params = list(model.parameters())
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]
@@ -101,26 +131,38 @@ def make_detector_train_step(model: MaskRCNN, optimizer: DetectorSGD,
                            gt_masks28=batch.get("gt_masks28"),
                            generator=generator)
         losses["total"].backward()
+        parallel.allreduce_gradients(params)
         optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        with torch.no_grad():
+            keys = list(losses)
+            mean = parallel.allreduce_sum(torch.stack(
+                [losses[k].detach().float() for k in keys]))
+            mean = mean / parallel.world_size()
+        return dict(zip(keys, mean.unbind()))
 
     return train_step
 
 
 class DetectorTrainer:
     """The detector, its optimizer and its sampling generator on one
-    device (the card unless ``device="cpu"``); batches come from the
-    caller (``detector_batch_iterator``). fp32 convolutions and matmuls run
-    at full fp32 precision: the trainer turns the process's TF32 switches
-    off (cuDNN's is on by default)."""
+    device (the card unless ``device="cpu"``), one rank's under a process
+    group; global batches of ``batch_size`` images come from the caller
+    (``detector_batch_iterator``), and the world size must divide
+    ``batch_size``. fp32 convolutions and matmuls run at full fp32
+    precision: the trainer turns the process's TF32 switches off (cuDNN's
+    is on by default)."""
 
     def __init__(self, *, num_classes: int, with_mask: bool = True,
-                 depth: int = 50, base_lr: float = 2.5e-4, seed: int = 0,
+                 depth: int = 50, batch_size: int = 2,
+                 base_lr: float = 2.5e-4, seed: int = 0,
                  roi_batch: int = 256, post_nms_topk: int = 512,
-                 stride_in_1x1: bool = False, freeze_at: int = 0,
-                 bf16: bool = False, fast_nms: bool = False,
-                 device="cuda"):
+                 batch_multiply: int = 1, stride_in_1x1: bool = False,
+                 freeze_at: int = 0, bf16: bool = False,
+                 fast_nms: bool = False, device="cuda"):
         self.device = resolve_device(device)
+        if batch_size % parallel.world_size():
+            raise ValueError(f"the world size {parallel.world_size()} must "
+                             f"divide the image batch {batch_size}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = MaskRCNN(num_classes=num_classes, depth=depth,
@@ -131,15 +173,23 @@ class DetectorTrainer:
                               freeze_at=freeze_at, fast_train_nms=fast_nms)
         init_detector_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
-        self.optimizer = DetectorSGD(list(self.model.parameters()), base_lr)
+        parallel.broadcast_module(self.model)
+        self.optimizer = DetectorSGD(list(self.model.parameters()), base_lr,
+                                     every_k=batch_multiply)
         self.step_fn = make_detector_train_step(self.model, self.optimizer,
                                                 bf16)
         self.step = 0
-        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self.generator = torch.Generator(self.device).manual_seed(
+            parallel.rank_seed(seed + 1))
 
     def run_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        losses = self.step_fn(device_batch(batch, self.device),
-                              self.generator)
+        """One step on a global batch, of which this rank takes its
+        images."""
+        mine = parallel.shard(len(batch["image"]))
+        losses = self.step_fn(
+            device_batch({k: batch[k][mine] for k in BATCH_KEYS
+                          if k in batch}, self.device),
+            self.generator)
         self.step += 1
         return {k: float(v) for k, v in losses.items()}
 

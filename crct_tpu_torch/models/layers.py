@@ -63,6 +63,26 @@ class DropoutRNG:
         self.device = torch.device(device)
         self._device_generator: Optional[torch.Generator] = None
 
+    def snapshot(self) -> tuple:
+        """The state of both generators (the device one's, None before it
+        exists), to replay a block's draws in its recompute."""
+        return (self.generator.get_state(),
+                None if self._device_generator is None
+                else self._device_generator.get_state())
+
+    def replay(self, state: tuple) -> "DropoutRNG":
+        """A DropoutRNG on copies of the generators set to ``state``: it
+        draws what this one drew after :meth:`snapshot`, and leaves this
+        one's generators (the trainer's among them) where they are. A
+        device generator that did not exist yet is seeded from the copied
+        CPU generator at its first draw, as here."""
+        rng = DropoutRNG(torch.Generator(), self.device)
+        rng.generator.set_state(state[0])
+        if state[1] is not None:
+            rng._device_generator = torch.Generator(self.device)
+            rng._device_generator.set_state(state[1])
+        return rng
+
     def seed(self) -> int:
         """A fresh seed in [0, 2**31 - 1), the range the JAX layers draw."""
         return int(torch.randint(0, 2 ** 31 - 1, (),

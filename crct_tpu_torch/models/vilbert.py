@@ -8,7 +8,8 @@ answer-ranking head. Module attributes carry the reference torch names
 (``bert.embeddings.*``, ``bert.encoder.layer.N``, ``bert.encoder.c_layer.N``).
 In training mode, with a ``DropoutRNG``, the embeddings, the layers and the
 pooled fusion apply dropout and the image embeddings the ``mask_prob_img``
-keep draw, as in the JAX modules; in eval mode nothing is drawn.
+keep draw, as in the JAX modules; in eval mode nothing is drawn. With the
+config's ``remat`` each encoder block is recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from crct_tpu_torch.config import CRCTModelConfig
 from crct_tpu_torch.models.layers import (ConnectionLayer, TransformerLayer,
@@ -139,6 +141,26 @@ class TwoStreamEncoder(nn.Module):
                             cfg.hidden_dropout_prob)
             for _ in range(len(cfg.v_biattention_id)))
 
+    def _block(self, layer: nn.Module, *args, rng=None):
+        """``layer(*args, rng)``; with ``remat`` while gradients are on, in
+        a ``torch.utils.checkpoint`` (JAX ``nn.remat``): the backward runs
+        the block again, the attention kernel's log-sum-exp included, with
+        the dropout draws of the first run replayed from a snapshot of the
+        ``DropoutRNG`` (checkpoint's own RNG preservation covers only
+        torch's default generators)."""
+        if not (self.config.remat and torch.is_grad_enabled()):
+            return layer(*args, rng)
+        state = rng.snapshot() if rng is not None else None
+        runs = []
+
+        def run(*xs):
+            replay = rng if rng is None or not runs else rng.replay(state)
+            runs.append(True)
+            return layer(*xs, replay)
+
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def forward(self, t_emb, v_emb, t_mask, v_mask, rng=None):
         cfg = self.config
         v_start = t_start = 0
@@ -146,12 +168,12 @@ class TwoStreamEncoder(nn.Module):
         for count, (v_end, t_end) in enumerate(
                 zip(cfg.v_biattention_id, cfg.t_biattention_id)):
             for idx in range(v_start, v_end):
-                v_emb = self.v_layer[idx](v_emb, v_mask, rng)
+                v_emb = self._block(self.v_layer[idx], v_emb, v_mask, rng=rng)
                 if idx < cfg.fixed_v_layer:
                     # frozen prefix (reference no_grad, vilbert.py:860-866)
                     v_emb = v_emb.detach()
             for idx in range(t_start, t_end):
-                t_emb = self.layer[idx](t_emb, t_mask, rng)
+                t_emb = self._block(self.layer[idx], t_emb, t_mask, rng=rng)
                 if idx < cfg.fixed_t_layer:
                     t_emb = t_emb.detach()
             if count == 0 and cfg.in_batch_pairs:
@@ -167,13 +189,13 @@ class TwoStreamEncoder(nn.Module):
                 t_emb = t_emb.expand((v_emb.shape[0],) + t_emb.shape[1:])
                 t_mask = t_mask.expand((v_emb.shape[0],) + t_mask.shape[1:])
             if cfg.with_coattention:
-                v_emb, t_emb = self.c_layer[count](v_emb, v_mask, t_emb,
-                                                   t_mask, rng)
+                v_emb, t_emb = self._block(self.c_layer[count], v_emb, v_mask,
+                                           t_emb, t_mask, rng=rng)
             v_start, t_start = v_end, t_end
         for idx in range(v_start, cfg.v_num_hidden_layers):
-            v_emb = self.v_layer[idx](v_emb, v_mask, rng)
+            v_emb = self._block(self.v_layer[idx], v_emb, v_mask, rng=rng)
         for idx in range(t_start, cfg.num_hidden_layers):
-            t_emb = self.layer[idx](t_emb, t_mask, rng)
+            t_emb = self._block(self.layer[idx], t_emb, t_mask, rng=rng)
         return t_emb, v_emb
 
 

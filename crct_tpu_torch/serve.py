@@ -36,12 +36,16 @@ checkpoint that carries a trained head (``cli.train_fast_scorer``).
 The pred dict mirrors the JAX server's (answer, cls_output, reg_output,
 is_reg, confidence, optional ``top``); ``confidence`` is the model's raw
 per-candidate NSP probability (fast-only: the head's softmax over the valid
-candidates). Data parallelism is not ported yet.
+candidates). Given several devices, the scorer holds one replica of the
+model on each and splits every dispatch's rows across them (the JAX
+server's local-mesh data parallelism): ``-mesh_shape N`` serves over the
+first N cards.
 """
 
 from __future__ import annotations
 
 import base64
+import copy
 import io
 import json
 import queue
@@ -111,13 +115,20 @@ class QAScorer:
     Low-latency modes mirror the eval CLI's (-fast_scorer /
     -fast_scorer_topk): the light candidate head scores every candidate
     from ONE backbone pass per question; with top-k the full model rescores
-    only the K shortlisted rows."""
+    only the K shortlisted rows.
+
+    ``device`` may be a list of devices: one replica of the model on each,
+    and every dispatch's rows split evenly across them, its size rounded up
+    to a multiple of their number (the JAX scorer's local mesh)."""
 
     def __init__(self, params: Dict[str, Any], dataset: ChartQADataset,
                  model: Optional[CRCTModel] = None, *, device="cuda"):
         self.params = params
         self.dataset = dataset
-        self.device = resolve_device(device)
+        devices = [resolve_device(d) for d in
+                   (device if isinstance(device, (list, tuple)) else
+                    [device])]
+        self.device = devices[0]
         self.fast = bool(params.get("fast_scorer"))
         self.topk = int(params.get("fast_scorer_topk") or 0) \
             if self.fast else 0
@@ -135,26 +146,33 @@ class QAScorer:
             raise ValueError("-fast_scorer serving needs a model with the "
                              "fast_scorer head")
         self.model = model.to(self.device).eval()
+        # one replica a device; the first is self.model
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in devices[1:]]
+        self.devices = devices
         # transfer-deduplicated dispatch: per-question visual arrays ship
         # once per coalesced batch and are gathered per row on the card
         self.dedup = bool(params.get("eval_dedup", True))
-        self.eval_step = (make_eval_step_dedup(self.model) if self.dedup
-                          else make_eval_step(self.model))
+        make_step = make_eval_step_dedup if self.dedup else make_eval_step
+        self.eval_step = make_step(self.model)
+        self._eval_steps = [make_step(m) for m in self.replicas[1:]]
         # bf16 models: cast image_feat on the host (bit-identical: the
         # model's first touch casts it to bf16) and move half the bytes
         self.bf16_transfer = self.model.compute_dtype == torch.bfloat16
         # pad the question axis of the visual arrays to multiples of this
         # so coalesced batches of varying size keep a few shapes
         self.vis_pad = max(1, int(params.get("serve_max_batch", 32)))
-        self.chunk = resolve_eval_chunk(params)
+        n = len(self.replicas)
+        self.chunk = -(-resolve_eval_chunk(params) // n) * n
         if self.fast:
-            self.fast_step = (make_fast_eval_step_dedup(self.model)
-                              if self.dedup
-                              else make_fast_eval_step(self.model))
+            make_fast = (make_fast_eval_step_dedup if self.dedup
+                         else make_fast_eval_step)
+            self.fast_step = make_fast(self.model)
+            self._fast_steps = [make_fast(m) for m in self.replicas[1:]]
             # the fast dispatch is sized to the BATCHER cap: a coalesced
             # batch holds at most serve_max_batch questions, so one fast
             # dispatch covers it with bounded padding
-            self.qchunk = self.vis_pad
+            self.qchunk = -(-self.vis_pad // n) * n
         self.figs: Dict[int, Dict[str, Any]] = {}   # ingested overlay
         self.dispatches = 0
         self.served = 0
@@ -172,9 +190,11 @@ class QAScorer:
         self.figs[image_id] = record
         return image_id
 
-    def _vis_from_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Per-question visual arrays -> the card, once per coalesced batch
-        (the dedup layout of train/eval_loop.py), padded to ``vis_pad``."""
+    def _vis_from_batch(self, batch: Dict[str, Any]
+                        ) -> List[Dict[str, torch.Tensor]]:
+        """Per-question visual arrays -> each replica's card, once per
+        coalesced batch (the dedup layout of train/eval_loop.py), padded to
+        ``vis_pad``."""
         nq = np.asarray(batch["tokens"]).shape[0]
         padded = -(-nq // self.vis_pad) * self.vis_pad
         vis = {}
@@ -188,26 +208,39 @@ class QAScorer:
             t = torch.from_numpy(np.ascontiguousarray(v))
             if k == "image_feat" and self.bf16_transfer:
                 t = t.to(torch.bfloat16)
-            vis[k] = t.to(self.device)
-        return vis
+            vis[k] = t
+        return [{k: t.to(d) for k, t in vis.items()} for d in self.devices]
 
-    def _run_chunks(self, rows: Dict[str, np.ndarray], step=None,
+    def _run_chunks(self, rows: Dict[str, np.ndarray], fast: bool = False,
                     chunk: int = 0, vis=None, qidx=None):
-        """Dispatch rows through a step (default: the full-model eval step
-        at ``self.chunk`` rows) in fixed-size pieces; one host fetch per
-        dispatch. Returns the first two outputs of the valid rows (NSP
-        probabilities or candidate logits, and the regression outputs).
-        ``vis``/``qidx`` select the dedup signature (text rows +
-        per-question visual arrays + row -> question index)."""
-        step = step or self.eval_step
+        """Dispatch rows through the full-model eval step (``fast``: the
+        fast-scorer step) in fixed-size pieces (``chunk``, default
+        ``self.chunk`` rows), each split evenly across the replicas; one
+        host fetch per dispatch. Returns the first two outputs of the valid
+        rows (NSP probabilities or candidate logits, and the regression
+        outputs). ``vis``/``qidx`` select the dedup signature (text rows +
+        each replica's per-question visual arrays + row -> question
+        index)."""
+        steps = ([self.fast_step] + self._fast_steps if fast
+                 else [self.eval_step] + self._eval_steps)
+        n = len(steps)
         if qidx is not None:
             rows = dict(rows, _qidx=np.asarray(qidx, np.int64))
         a_list, b_list = [], []
-        for piece, valid in _chunk_rows(rows, chunk or self.chunk):
-            q = piece.pop("_qidx", None)
-            out = (step(piece, vis, q) if q is not None else step(piece))
-            a_list.append(out[0][:valid].float().cpu().numpy())
-            b_list.append(out[1][:valid].float().cpu().numpy())
+        chunk = -(-(chunk or self.chunk) // n) * n
+        for piece, valid in _chunk_rows(rows, chunk):
+            part = chunk // n
+            outs = []
+            for i, step in enumerate(steps):     # launch on every card
+                sub = {k: v[i * part:(i + 1) * part]
+                       for k, v in piece.items()}
+                q = sub.pop("_qidx", None)
+                outs.append(step(sub, vis[i], q) if q is not None
+                            else step(sub))
+            a_list.append(torch.cat([o[0].float().cpu() for o in outs])
+                          [:valid].numpy())
+            b_list.append(torch.cat([o[1].float().cpu() for o in outs])
+                          [:valid].numpy())
             self.dispatches += 1
         return (np.concatenate(a_list) if a_list
                 else np.zeros(0, np.float32),
@@ -321,11 +354,11 @@ class QAScorer:
             ftext = {k: v for k, v in frows.items()
                      if k not in EVAL_VIS_KEYS}
             cand_logits, reg_fast = self._run_chunks(
-                ftext, step=self.fast_step, chunk=self.qchunk, vis=vis,
+                ftext, fast=True, chunk=self.qchunk, vis=vis,
                 qidx=np.arange(nq, dtype=np.int64))
         else:
             cand_logits, reg_fast = self._run_chunks(
-                frows, step=self.fast_step, chunk=self.qchunk)
+                frows, fast=True, chunk=self.qchunk)
         num_ans = np.asarray(batch["num_ans"]).reshape(-1)
         B, P = cand_logits.shape
         needs_reg = (np.asarray(batch["needs_reg"])
@@ -743,13 +776,15 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(params: Dict[str, Any], *, dataset=None, model=None,
                 port: Optional[int] = None, ingestor=None,
                 device="cuda") -> QAServer:
-    """Build the server on ``device`` (port 0 picks a free port). It scores
-    one known question before it is returned, so the kernel build happens
-    before traffic is accepted. ``ingestor`` (or -serve_detector_weights,
-    whose detector runs on the same device) enables POST /v1/figures and
+    """Build the server on ``device`` (a list: a scorer replica on each;
+    port 0 picks a free port). It scores one known question before it is
+    returned, so the kernel build happens before traffic is accepted.
+    ``ingestor`` (or -serve_detector_weights, whose detector runs on the
+    first device) enables POST /v1/figures and
     runs one detect before the server is returned; -serve_no_dataset skips
     the feature shards entirely."""
-    device = resolve_device(device)
+    devices = device if isinstance(device, (list, tuple)) else [device]
+    device = resolve_device(devices[0])
     if dataset is None:
         if params.get("serve_no_dataset"):
             dataset = InMemoryFigures(params, split=params["eval_set"])
@@ -765,7 +800,7 @@ def make_server(params: Dict[str, Any], *, dataset=None, model=None,
             num_classes=params.get("categories") or 228,
             canvas=parse_canvas(params["serve_detector_canvas"]),
             short_edge=params.get("serve_short_edge", 800), device=device)
-    scorer = QAScorer(params, dataset, model=model, device=device)
+    scorer = QAScorer(params, dataset, model=model, device=devices)
     server = QAServer(("", params["port"] if port is None else port), scorer,
                       max_batch=params.get("serve_max_batch", 32),
                       max_delay_ms=params.get("serve_max_delay_ms", 5.0),

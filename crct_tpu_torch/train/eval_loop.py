@@ -1,6 +1,8 @@
 """Full-candidate ranking evaluation (reference CRCT/evaluation.py).
 
-The port of ``crct_tpu/train/eval_loop.py`` on one card. Each question fans
+The port of ``crct_tpu/train/eval_loop.py``, one card a process (under a
+process group each rank scores its shard of the questions and the
+accumulators are summed over the ranks at the end). Each question fans
 out to all its candidate answers (padded to EVAL_PADDED_SIZE with a validity
 mask); the valid candidate rows are packed host-side into fixed-size chunks,
 scored by the model, and a per-question argmax over the candidates' NSP
@@ -35,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from crct_tpu_torch import parallel
 from crct_tpu_torch.models.crct import CRCTModel
 
 # question-category membership by qid prefix lists (evaluation.py:434-445)
@@ -387,17 +390,19 @@ def reduce_histogram(histogram: np.ndarray, reg_5_dist: np.ndarray) -> np.ndarra
 
 class EvaluationLog:
     """One CSV of per-question results and one snapshot set of the
-    accumulators per process (rank 0 on one card; the file names carry the
-    rank as the JAX package's do)."""
+    accumulators per process; the file names carry the rank (of the process
+    group, unless given) as the JAX package's do."""
 
     COLUMNS = ["qa_ind", "gt_cls", "pred_cls", "gt_reg", "pred_reg",
                "reg_target", "reg_%_error", "reg_t_error"]
 
     def __init__(self, params: Dict[str, Any], cont_eval: bool,
-                 rank: int = 0):
+                 rank: Optional[int] = None):
         os.makedirs(params["save_path"], exist_ok=True)
         ckpt = os.path.basename(str(params.get("start_checkpoint", "ck")))
         base = f"{params['save_path']}/eval_results_{params['eval_set']}_{ckpt}"
+        if rank is None:
+            rank = parallel.rank()
         self.rank = rank
         self.fp = f"{base}_{rank}.csv"
         self.snapshot_paths = {k: f"{base}_{k}_{rank}.npy"
@@ -466,14 +471,15 @@ def evaluate(dataloader, dataset, params: Dict[str, Any], model: CRCTModel,
 
     A model in training mode (in-train eval: fp32 masters, autocast to its
     compute dtype) is scored in eval mode and put back in training mode
-    afterwards. ``allreduce`` sums the accumulators over processes; on one
-    card it is the identity."""
+    afterwards. ``allreduce`` sums the accumulators over processes (default:
+    over the process group, the identity without one); each rank scores
+    the questions of its own loader on its own card."""
     was_training = model.training
     model.eval()
     try:
         return _evaluate(dataloader, dataset, params, model, eval_batch_size,
                          progress, csv, cont_eval, log_print,
-                         allreduce or (lambda a: a), on_predictions)
+                         allreduce or parallel.global_sum, on_predictions)
     finally:
         model.train(was_training)
 

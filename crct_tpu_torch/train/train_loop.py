@@ -1,12 +1,20 @@
 """Training step and epoch loop (reference CRCT/train.py).
 
-The port of ``crct_tpu/train/train_loop.py`` on one card: ``make_train_step``
-carries the hot path (forward with dropout, losses, backward through the
-attention kernels, the 4-group AdamW and the 9-slot metric vector), the
-``Trainer`` owns the model, the optimizer, the dropout generator and the
-checkpoints, and ``run_training`` is the epoch loop with its log lines, the
-NaN guard, the SIGTERM preemption save, checkpoint retention, TensorBoard
-scalars and ``-profile``. There is no mesh: ``-ddp`` is not ported yet.
+The port of ``crct_tpu/train/train_loop.py``: ``make_train_step`` carries
+the hot path (forward with dropout, losses, backward through the attention
+kernels, the 4-group AdamW and the 9-slot metric vector), the ``Trainer``
+owns the model, the optimizer, the dropout generator and the checkpoints,
+and ``run_training`` is the epoch loop with its log lines, the NaN guard,
+the SIGTERM preemption save, checkpoint retention, TensorBoard scalars and
+``-profile``.
+
+Under a process group (``parallel``: one rank per card) every rank starts
+from rank 0's weights, takes its shard of each epoch, and averages its
+gradients with the others' before the optimizer, so that a step is the JAX
+mesh step over the global batch of ``batch_size`` rows a card. The metrics
+are reduced as sums of their numerators and of ``num_regs``, as the JAX
+psums are. Each rank draws its own dropout stream, from the seed and its
+rank; rank 0 alone logs, writes TensorBoard and saves checkpoints.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from crct_tpu_torch import parallel
 from crct_tpu_torch.models.crct import CRCTModel, build_model
 from crct_tpu_torch.train.optimizer import AdamW, current_lr
 from crct_tpu_torch.utils.checkpoint import (checkpoint_name, epoch_from_name,
@@ -52,8 +61,10 @@ def make_train_step(model: CRCTModel, optimizer: AdamW
                     ) -> Callable[[Dict[str, torch.Tensor], torch.Generator],
                                   torch.Tensor]:
     """(batch on the model's device, dropout generator) -> the 9-slot metric
-    vector on the device, after forward, backward and the optimizer step
-    (an update every ``optimizer.every_k``-th call)."""
+    vector on the device, after forward, backward, the gradients' mean over
+    the process group and the optimizer step (an update every
+    ``optimizer.every_k``-th call). The metrics are the global batch's."""
+    params = list(model.parameters())
 
     def train_step(batch, generator):
         model.train()
@@ -61,26 +72,32 @@ def make_train_step(model: CRCTModel, optimizer: AdamW
             p.grad = None
         out = model(batch, generator)
         out.loss.backward()
+        parallel.allreduce_gradients(params)
         optimizer.step()
         with torch.no_grad():
-            num_regs = out.needs_reg.sum().float()
-            denom = num_regs.clamp(min=1.0)
-            zero = torch.zeros((), device=num_regs.device)
+            zero = torch.zeros((), device=out.loss.device)
             # 9-slot metric vector (reference train.py:181-191):
             # [loss, lm_loss, nsp_loss, reg_loss, reg_5_dist, legend_loss,
-            #  num_regs, reg_5_right, reg_t_right]
-            return torch.stack([
+            #  num_regs, reg_5_right, reg_t_right], summed over the world;
+            # the losses are means over equal local batches and the
+            # regression means divide by the global num_regs
+            m = parallel.allreduce_sum(torch.stack([
                 out.loss.detach(), zero, out.nsp_loss.detach(),
-                out.reg_loss.sum() / denom, out.reg_5_dist.sum() / denom,
-                zero, num_regs, out.correct_regs.sum().float(),
-                out.correct_t_regs.sum().float()])
+                out.reg_loss.sum(), out.reg_5_dist.sum(), zero,
+                out.needs_reg.sum().float(), out.correct_regs.sum().float(),
+                out.correct_t_regs.sum().float()]))
+            world = parallel.world_size()
+            denom = m[6].clamp(min=1.0)
+            return torch.stack([m[0] / world, m[1], m[2] / world,
+                                m[3] / denom, m[4] / denom, *m[5:]])
 
     return train_step
 
 
 class Trainer:
     """Model, optimizer, dropout generator, step and checkpoints on one
-    device (the card unless ``device="cpu"``)."""
+    device (the card unless ``device="cpu"``), one rank's under a process
+    group: the weights are rank 0's after any checkpoint is loaded."""
 
     def __init__(self, params_dict: Dict[str, Any],
                  model: Optional[CRCTModel], iters_per_epoch: float,
@@ -97,10 +114,12 @@ class Trainer:
         self.step = 0
         self.start_epoch = 0
         self._maybe_load_checkpoint()
+        parallel.broadcast_module(self.model)
         self.train_step = make_train_step(self.model, self.optimizer)
-        # the dropout generator: every seed and mask of a step comes from it
+        # the dropout generator: every seed and mask of a step comes from
+        # it, a stream of each rank's own
         self.generator = torch.Generator().manual_seed(
-            int(params_dict.get("seed", 0)) + 17)
+            parallel.rank_seed(int(params_dict.get("seed", 0)) + 17))
 
     def _maybe_load_checkpoint(self) -> None:
         pd = self.params_dict
@@ -150,26 +169,26 @@ class Trainer:
 def run_training(params_dict: Dict[str, Any], dataset, eval_fn=None,
                  device="cuda") -> Trainer:
     """Multi-epoch training loop with logging and checkpoints (reference
-    run_training_DDP, train.py:21-353), on one device."""
+    run_training_DDP, train.py:21-353) on ``device``, one rank's under a
+    process group: its shard of every epoch, ``batch_size`` rows a step."""
     from crct_tpu_torch.data.dataset import DataLoader
 
-    if params_dict.get("ddp"):
-        raise NotImplementedError("-ddp (data parallelism) is not ported "
-                                  "yet: the port trains on one card")
     init_log_file(params_dict)
+    world = parallel.world_size()
     log_line(params_dict, "De facto batch_size: {}*{}*{} = {}".format(
-        params_dict["batch_size"], 1, params_dict["batch_multiply"],
-        params_dict["batch_size"] * params_dict["batch_multiply"]))
+        params_dict["batch_size"], world, params_dict["batch_multiply"],
+        params_dict["batch_size"] * world * params_dict["batch_multiply"]))
     dataset.split = "train"
     loader = DataLoader(dataset, params_dict["batch_size"], shuffle=True,
                         seed=params_dict.get("seed", 0),
                         num_workers=params_dict.get("num_workers", 8) or 1,
-                        drop_last=True)
+                        drop_last=True, num_shards=world,
+                        shard_index=parallel.rank())
     if len(loader) == 0:
         raise ValueError(
             f"empty dataloader: dataset has {len(dataset)} examples but the "
-            f"batch size is {params_dict['batch_size']} with drop_last - "
-            f"lower -batch_size or add data")
+            f"global batch size is {params_dict['batch_size'] * world} with "
+            f"drop_last - lower -batch_size or add data")
     iters_per_epoch = max(1, len(loader) / params_dict["batch_multiply"])
     trainer = Trainer(params_dict, None, iters_per_epoch, device)
     log_line(params_dict, f"len(dataloader)={len(loader)}")
@@ -178,6 +197,8 @@ def run_training(params_dict: Dict[str, Any], dataset, eval_fn=None,
     # loop saves a resumable checkpoint at the next step boundary and
     # returns. The save carries epoch_id-1 in its name so `-continue` re-runs
     # the interrupted epoch from its (deterministically reshuffled) start.
+    # The ranks decide together at each boundary: a rank that stopped alone
+    # would leave the others waiting in the next all-reduce.
     stop_requested = []
     prev_handler = None
     try:
@@ -209,7 +230,7 @@ def _run_epochs(params_dict, trainer, loader, dataset, eval_fn,
         loader.set_epoch(epoch_id)
         epoch_time = time.time()
         for iter_id, batch in enumerate(loader):
-            if stop_requested:
+            if parallel.any_rank(bool(stop_requested)):
                 _preempt_save(params_dict, trainer, epoch_id)
                 return trainer
             if params_dict.get("profile") and trainer.step == 10:
@@ -222,7 +243,11 @@ def _run_epochs(params_dict, trainer, loader, dataset, eval_fn,
                     os.path.join(profile_dir, "train_steps_10_15.json"))
                 profiler = None
                 log_line(params_dict, f"profiler trace saved to {profile_dir}")
-            need_tb = tb_writer is not None and iter_id % tb_every == 0
+            # read at the same steps on every rank (the writer is rank 0's
+            # alone): the metrics are global, so the NaN guard stops every
+            # rank at the same step
+            need_tb = (bool(params_dict.get("tensorboard"))
+                       and iter_id % tb_every == 0)
             if not (need_tb or iter_id % PRINT_EVERY == 0):
                 continue
             metrics = device_metrics.cpu().numpy()
@@ -232,7 +257,7 @@ def _run_epochs(params_dict, trainer, loader, dataset, eval_fn,
                     not np.isfinite(total_loss):
                 _nan_halt(params_dict, trainer, total_loss, epoch_id, iter_id)
             loss_hist.append((reg_loss, nsp_loss))
-            if need_tb:
+            if need_tb and tb_writer is not None:
                 tb_writer.add_scalar("Loss/Total Loss", total_loss, trainer.step)
                 tb_writer.add_scalar("Loss/nsp", nsp_loss, trainer.step)
                 tb_writer.add_scalar("Reg Loss/reg_MSE", reg_loss, trainer.step)
@@ -260,7 +285,9 @@ def _run_epochs(params_dict, trainer, loader, dataset, eval_fn,
                                         trainer.step // bm),
                              trainer.step, end_t - start_t,
                              strftime("%H:%M", gmtime(est)), total_loss,
-                             nsp_loss, reg_loss, num_regs, len(batch["R"]),
+                             # the metrics are global; so is the row count
+                             nsp_loss, reg_loss, num_regs,
+                             len(batch["R"]) * parallel.world_size(),
                              reg_5_right / max(1, num_regs),
                              reg_t_right / max(1, num_regs),
                              hist[:, 0].mean(), hist[:, 1].mean()))

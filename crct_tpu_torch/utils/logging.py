@@ -1,7 +1,8 @@
 """Rank-gated run logging (reference CRCT/utils.py:32-47).
 
-The port's copy of ``crct_tpu/utils/logging.py``. With one card and no
-process group, the process is rank 0 unless ``-rank`` says otherwise.
+The port's copy of ``crct_tpu/utils/logging.py``. Under a process group
+the group's rank decides; without one the process is rank 0 unless
+``-rank`` says otherwise.
 """
 
 from __future__ import annotations
@@ -12,15 +13,13 @@ from typing import Any, Dict
 
 
 def is_rank0(params: Dict[str, Any]) -> bool:
-    """True on the process that owns logs and TensorBoard: an explicit
-    nonzero ``-rank`` wins; otherwise the rank of an initialized
-    ``torch.distributed`` process group, else 0."""
-    if int(params.get('rank') or 0):
-        return False
+    """True on the process that owns logs and TensorBoard: rank 0 of an
+    initialized ``torch.distributed`` process group, else the process
+    whose ``-rank`` is 0."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank() == 0
-    return True
+    return not int(params.get('rank') or 0)
 
 
 def init_log_file(params: Dict[str, Any]) -> None:

@@ -35,6 +35,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                                             "tensorstore"))
         assert not bad, bad
         assert "crct_tpu_torch.serve" in names, names
+        assert "crct_tpu_torch.parallel.mesh" in names, names
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -92,6 +93,44 @@ def test_train_entry_points_default_to_the_card(no_card, tmp_path):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval"])
     with pytest.raises(RuntimeError, match="no card"):
         Trainer(default_params(save_path=str(tmp_path)), None, 1)
+
+
+def test_data_parallelism_defaults_to_the_card(no_card, monkeypatch):
+    """-ddp on the default device raises without a card, before any process
+    group forms, rather than training on the CPU over gloo."""
+    from crct_tpu_torch.cli.train import main
+    from crct_tpu_torch.parallel import maybe_initialize_distributed
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="no card"):
+        maybe_initialize_distributed({"ddp": True})
+    with pytest.raises(RuntimeError, match="no card"):
+        main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval",
+              "-ddp"])
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_ddp_without_a_rendezvous_refuses_several_cards(monkeypatch):
+    """-ddp in one process on a machine with several cards raises and names
+    the torchrun launch, where the JAX -ddp would span every local chip;
+    with one card it is the world of one."""
+    from crct_tpu_torch.parallel import mesh
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(mesh, "resolve_device", lambda d: torch.device(d))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
+        mesh.maybe_initialize_distributed({"ddp": True})
+    assert not mesh.maybe_initialize_distributed({"ddp": False})
+    assert not mesh.maybe_initialize_distributed({"ddp": True,
+                                                  "device": "cpu"})
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert not mesh.maybe_initialize_distributed({"ddp": True})
+    assert not mesh.is_initialized()
 
 
 def test_detector_entry_points_default_to_the_card(no_card):

@@ -128,6 +128,34 @@ def test_backward_kernel_matches_plain_on_card(card, shape, dtype):
                                            rtol=0)
 
 
+def test_kernels_launch_on_every_card_on_card(card):
+    """K1 and K2 on each visible card, the first card last (a scorer keeps a
+    model replica on each): a kernel's shared-memory limit is raised per
+    device, so a launch on a second card does not fail with
+    cudaErrorInvalidValue."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    for d in list(range(1, n)) + [0]:
+        dev = torch.device("cuda", d)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask = make_qkv(d, 4, 16, 124, 124, 48, 1, dtype, dev)
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            out = attention.fused_attention(q, k, v, mask, 0.1, 5)
+            got = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+            want = attention.attention_bwd_reference(
+                q, k, v, mask, torch.ones_like(out), 0.1, 5)
+            torch.testing.assert_close(
+                out.float(), attention.attention_reference(
+                    q, k, v, mask, 0.1, 5).float(),
+                atol=TOL[dtype], rtol=TOL[dtype])
+            for a, w in zip(got, want):
+                assert a.device == dev
+                tol = TOL[dtype] * max(1.0, w.float().abs().max().item())
+                torch.testing.assert_close(a.float(), w.float(), atol=tol,
+                                           rtol=0)
+
+
 def test_backward_regenerates_the_forward_mask_on_card(card):
     """<out, C> = <v, dv>: out is linear in v, so the two agree only if K2
     drew the keep mask K1 drew."""

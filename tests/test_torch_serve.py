@@ -285,10 +285,15 @@ def test_dynamic_batcher_coalesces_and_preserves_order():
 
 def test_cli_rejects_flags_not_yet_ported():
     from crct_tpu_torch.cli.serve import main
-    for flag in (["-pallas"], ["-mesh_shape", "4"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            main(["-qa_file", "qa_pairs.npy", "-save_name", "x",
-                  "-device", "cpu", *flag])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main(["-qa_file", "qa_pairs.npy", "-save_name", "x",
+              "-device", "cpu", "-pallas"])
+    # ported: -mesh_shape N serves over the first N cards, which must exist
+    import torch
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"-mesh_shape {n}: only"):
+        main(["-qa_file", "qa_pairs.npy", "-save_name", "x",
+              "-mesh_shape", str(n)])
     # ported: but a server without shards needs the detector to ingest
     with pytest.raises(SystemExit, match="needs -serve_detector_weights"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-device",

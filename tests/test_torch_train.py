@@ -529,13 +529,16 @@ def test_max_checkpoints_keeps_the_newest(data_env, tmp_path):
 
 
 def test_cli_train_refuses_what_is_not_ported(data_env):
+    """-pallas is refused; -ddp is ported (tests/test_torch_parallel.py),
+    and -mesh_shape must equal the world size: one rank drives one card."""
     from crct_tpu_torch.cli.train import main
     with pytest.raises(SystemExit, match="-pallas"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-device",
               "cpu", "-pallas"])
-    with pytest.raises(SystemExit, match="-ddp"):
+    with pytest.raises(SystemExit, match="-mesh_shape 2 but the world"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval",
-              "-ddp", "-dist_url", "tcp://x_1"])
+              "-device", "cpu", "-ddp", "-dist_url", "tcp://x_1",
+              "-mesh_shape", "2"])
 
 
 def test_cli_train_runs_on_the_cpu_when_asked(data_env, tmp_path):
