@@ -121,8 +121,34 @@ Phases, one line each (any failure exits non-zero):
                whose gradients jump where a ReLU input within fp32
                reordering of zero changes sign; the detector cross-check's
                limits), with K3's launches counted per rank and shape.
+ 11. weights  - the weight tools on the flagship model: its random weights
+               (seed) as a reference-layout crct.ckpt (bert_pretrained.
+               prefix, legacy LM-head, q_dense and type-embedding keys,
+               gamma/beta names) through cli.convert_checkpoint (its printed
+               counts), cli.evaluate on the output beside the same weights
+               loaded directly (tables and per-row NSP bit-equal, K1),
+               /v1/answer requests served from it through K1; a seeded
+               BERT-base (12 layers, hidden 768, intermediate 3072) through
+               cli.import_bert into cli.train -start_checkpoint, 3 bf16
+               steps at batch 80 through K1 and K2 (the 196 text-stream
+               tensors transferred, bit-equal at step 0). The Orbax path
+               (JAX package checkpoints) needs tensorstore, which the card's
+               machine lacks: it is tested on the CPU, and the phase says so.
+ 12. proof   - crct_tpu_torch.tools.full_pipeline_proof --fast on the card
+               (its PNG charts): detector training through K3, extraction,
+               QA training through K1 and K2, evaluation through K1; each
+               stage's seconds and launches, the held-out accuracy beside
+               chance (not gated at --fast sizes); then K1 and K2 against
+               their plain versions at each (dtype, B, H, Lq, Lk, D) the
+               proof launched them at, and K3 on the proof's geometry at
+               each of its shapes (its 320 x 320 pyramid) with the proof's
+               cotangent and a unit-normal one, with the kernel phase's
+               limits.
 The line before the last holds the kernels' numbers as JSON, a row for each
-kernel, shape and dtype; the last line
+kernel, shape and dtype (with "proof_launches": the kernel's launches in
+the proof, for K1 and K2 those of the tiny model's attention of the same
+kind, Lq and Lk, at its own heads and head width, for K3 those of the
+same P on its 320 x 320 pyramid, apart from "launches"); the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
 package beside this script, it prints no result and exits non-zero.
 """
@@ -187,7 +213,7 @@ TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
 KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
 PHASES = ("kernel", "serve", "eval", "train", "cross", "detector", "ingest",
-          "parallel")
+          "parallel", "weights", "proof")
 EVAL_IMAGES = 16              # synthetic test (and train) figures x 4
                               # questions of the eval phase
 FS_STEPS = 40                 # fast-scorer head steps
@@ -237,6 +263,24 @@ SERVE_CALLS = 5
 # input of a rank's own that takes the other side must lie within this of
 # zero (a kink that the order of fp32 sums decides, not a different value)
 PAR_KINK = 1e-3
+# legacy keys of a published crct.ckpt that the converter drops: the LM
+# head, its transform (old gamma/beta LayerNorm names), BertBiOutput's
+# unused q_dense pair and the 13-way type embedding
+LEGACY_KEYS = {"cls.predictions.bias": (30522,),
+               "cls.predictions.transform.dense.weight": (768, 768),
+               "cls.predictions.transform.dense.bias": (768,),
+               "cls.predictions.transform.LayerNorm.gamma": (768,),
+               "cls.predictions.transform.LayerNorm.beta": (768,),
+               "bert.encoder.c_layer.0.biOutput.q_dense1.weight": (1024, 1024),
+               "bert.encoder.c_layer.0.biOutput.q_dense1.bias": (1024,),
+               "bert.encoder.c_layer.0.biOutput.q_dense2.weight": (1024, 1024),
+               "bert.encoder.c_layer.0.biOutput.q_dense2.bias": (1024,),
+               "bert.v_embeddings.type_embeddings.weight": (13, 1024)}
+# BERT-base at the text stream's widths, for cli.import_bert
+BERT_BASE = dict(layers=12, hidden=768, intermediate=3072, vocab=30522,
+                 positions=512)
+WEIGHT_TRAIN_IMAGES = 30      # x 4 questions x 2 = 240 items: 3 steps of 80
+N_SERVE_WEIGHTS = 6           # /v1/answer requests on the converted weights
 
 
 def say(phase, msg):
@@ -436,6 +480,91 @@ def kernel_times(attention):
     return ms
 
 
+K_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # K1 abs; K2 of max(1, |grad|)
+
+
+def k1_errors(attention, name, rows, shape, dtype, g, failures):
+    """K1 against its plain version at [rows, H, L, D] in dtype, key-only
+    and full masks, dropout 0 and 0.1: the output (through fused_attention,
+    which skips the log-sum-exp without a gradient, and attention_forward)
+    within K_TOL, the log-sum-exp within 1e-5 of max(1, |lse|). Returns the
+    worst output error and the worst relative lse error."""
+    import torch
+    H, Lq, Lk, D = shape
+    tol = K_TOL[str(dtype)[6:]]
+    worst, worst_lse = 0.0, 0.0
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v = (torch.randn(rows, H, L, D, device="cuda",
+                                   generator=g).to(dtype)
+                       for L in (Lq, Lk, Lk))
+            mask = torch.where(torch.rand(rows, 1, Lq if full else 1, Lk,
+                                          device="cuda", generator=g)
+                               < 0.2, -10000.0, 0.0)
+            got = attention.fused_attention(q, k, v, mask, rate, SEED)
+            got2, lse = attention.attention_forward(q, k, v, mask, rate,
+                                                    SEED)
+            want, want_lse = attention.attention_reference(
+                q, k, v, mask, rate, SEED, return_lse=True)
+            torch.cuda.synchronize()
+            err = max((x.float() - want.float()).abs().max().item()
+                      for x in (got, got2))
+            err_lse = (lse - want_lse).abs().max().item()
+            top = max(1.0, want_lse.abs().max().item())
+            case = (f"{name} {str(dtype)[6:]} "
+                    f"{'full' if full else 'key-only'} mask rate {rate}")
+            if not err <= tol:
+                failures.append(f"{case}: max abs err {err} > {tol}")
+            if not err_lse <= 1e-5 * top:
+                failures.append(f"{case}: lse off by {err_lse} > 1e-5 x "
+                                f"{top}")
+            worst, worst_lse = max(worst, err), max(worst_lse, err_lse / top)
+    return worst, worst_lse
+
+
+def bwd_inputs(g, rows, shape, dtype, full):
+    """K2's q, k, v, cotangent and a key-only or full 0/-10000 mask."""
+    import torch
+    H, Lq, Lk, D = shape
+    q, k, v, gr = (torch.randn(rows, H, L, D, device="cuda",
+                               generator=g).to(dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    mask = torch.where(torch.rand(rows, 1, Lq if full else 1, Lk,
+                                  device="cuda", generator=g)
+                       < 0.2, -10000.0, 0.0)
+    return q, k, v, gr, mask
+
+
+def k2_errors(attention, name, rows, shape, dtype, g, failures):
+    """K2 against its plain version at [rows, H, L, D] in dtype, key-only
+    and full masks, dropout 0 and 0.1: the gradients of fused_attention (K1
+    then K2 on K1's output and log-sum-exp) against attention_bwd_reference
+    recomputing everything, within K_TOL of the larger of 1 and the largest
+    gradient magnitude. Returns the worst max abs error."""
+    import torch
+    tol = K_TOL[str(dtype)[6:]]
+    worst = 0.0
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, gr, mask = bwd_inputs(g, rows, shape, dtype, full)
+            leaves = [x.requires_grad_() for x in (q, k, v)]
+            out = attention.fused_attention(*leaves, mask, rate, SEED)
+            got = torch.autograd.grad(out, leaves, gr)
+            want = attention.attention_bwd_reference(q, k, v, mask, gr,
+                                                     rate, SEED)
+            torch.cuda.synchronize()
+            err = max((a.float() - w.float()).abs().max().item()
+                      for a, w in zip(got, want))
+            top = max(w.float().abs().max().item() for w in want)
+            case = (f"{name} {str(dtype)[6:]} "
+                    f"{'full' if full else 'key-only'} mask rate {rate}")
+            if not err <= tol * max(1.0, top):
+                failures.append(f"K2 {case}: max abs err {err} > {tol} "
+                                f"x max(1, {top})")
+            worst = max(worst, err)
+    return worst
+
+
 def check_kernel(attention, name, shape, failures):
     """K1 against its plain version at one flagship shape, fp32 and bf16,
     key-only and full masks, dropout 0 and 0.1: the output (through
@@ -448,36 +577,9 @@ def check_kernel(attention, name, shape, failures):
     H, Lq, Lk, D = shape
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        worst, worst_lse = 0.0, 0.0
-        for full in (False, True):
-            for rate in (0.0, 0.1):
-                q, k, v = (torch.randn(B, H, L, D, device="cuda",
-                                       generator=g).to(dtype)
-                           for L in (Lq, Lk, Lk))
-                mask = torch.where(torch.rand(B, 1, Lq if full else 1, Lk,
-                                              device="cuda", generator=g)
-                                   < 0.2, -10000.0, 0.0)
-                got = attention.fused_attention(q, k, v, mask, rate, SEED)
-                got2, lse = attention.attention_forward(q, k, v, mask, rate,
-                                                        SEED)
-                want, want_lse = attention.attention_reference(
-                    q, k, v, mask, rate, SEED, return_lse=True)
-                torch.cuda.synchronize()
-                err = max((x.float() - want.float()).abs().max().item()
-                          for x in (got, got2))
-                err_lse = (lse - want_lse).abs().max().item()
-                top = max(1.0, want_lse.abs().max().item())
-                case = (f"{name} {str(dtype)[6:]} "
-                        f"{'full' if full else 'key-only'} mask rate {rate}")
-                if not err <= tol:
-                    failures.append(f"{case}: max abs err {err} > {tol}")
-                if not err_lse <= 1e-5 * top:
-                    failures.append(f"{case}: lse off by {err_lse} > 1e-5 x "
-                                    f"{top}")
-                worst, worst_lse = max(worst, err), max(worst_lse,
-                                                        err_lse / top)
-
+    for dtype in (torch.float32, torch.bfloat16):
+        worst, worst_lse = k1_errors(attention, name, B, shape, dtype, g,
+                                     failures)
         q, k, v = (torch.randn(B, H, L, D, device="cuda",
                                generator=g).to(dtype)
                    for L in (Lq, Lk, Lk))
@@ -519,36 +621,12 @@ def check_bwd_kernel(attention, name, shape, failures):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
 
     def inputs(dtype, full):
-        q, k, v, gr = (torch.randn(B_TRAIN, H, L, D, device="cuda",
-                                   generator=g).to(dtype)
-                       for L in (Lq, Lk, Lk, Lq))
-        mask = torch.where(torch.rand(B_TRAIN, 1, Lq if full else 1, Lk,
-                                      device="cuda", generator=g)
-                           < 0.2, -10000.0, 0.0)
-        return q, k, v, gr, mask
+        return bwd_inputs(g, B_TRAIN, shape, dtype, full)
 
     rows = []
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        worst = 0.0
-        for full in (False, True):
-            for rate in (0.0, 0.1):
-                q, k, v, gr, mask = inputs(dtype, full)
-                leaves = [x.requires_grad_() for x in (q, k, v)]
-                out = attention.fused_attention(*leaves, mask, rate, SEED)
-                got = torch.autograd.grad(out, leaves, gr)
-                want = attention.attention_bwd_reference(q, k, v, mask, gr,
-                                                         rate, SEED)
-                torch.cuda.synchronize()
-                err = max((a.float() - w.float()).abs().max().item()
-                          for a, w in zip(got, want))
-                top = max(w.float().abs().max().item() for w in want)
-                case = (f"{name} {str(dtype)[6:]} "
-                        f"{'full' if full else 'key-only'} mask rate {rate}")
-                if not err <= tol * max(1.0, top):
-                    failures.append(f"K2 {case}: max abs err {err} > {tol} "
-                                    f"x max(1, {top})")
-                worst = max(worst, err)
-
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = k2_errors(attention, name, B_TRAIN, shape, dtype, g,
+                          failures)
         q, k, v, gr, mask = inputs(dtype, False)
         out, lse = attention.attention_forward(q, k, v, mask)
         times = {
@@ -1930,17 +2008,25 @@ def short_name(kernel):
     return m.group(1) + (m.group(2) or "") if m else kernel
 
 
-def launched(fn):
-    """Names of the CUDA kernels, memsets and copies one call launches."""
+def launched(fn, tries=3):
+    """Names of the CUDA kernels, memsets and copies one call launches. A
+    trace with no device event at all is taken again (up to ``tries``
+    traces): the profiler has been seen to return an empty trace of a
+    call that did launch, and a call that launches nothing stays empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 # K3's edge cases: name -> (pyramid, boxes), as tests/test_torch_on_card.py
@@ -3589,18 +3675,16 @@ def serve_over_cards(root, failures, card, n):
     from ties within 1e-6 (random weights put candidates ~1e-7 apart)."""
     import torch
 
+    from crct_tpu_torch.cli.evaluate import load_eval_model
     from crct_tpu_torch.config import read_command_line
     from crct_tpu_torch.data.dataset import ChartQADataset
-    from crct_tpu_torch.models.crct import build_model
     from crct_tpu_torch.serve import QAScorer
-    from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
 
     params = read_command_line(eval_data(root) + ["-save_name", "serve"])
     ds = ChartQADataset(params, params["eval_set"],
                         init_split=params["eval_set"])
     ds.get_all_answers = True
-    model = build_model(params, device="cuda:0")
-    load_weights(model, load_torch_checkpoint(params["start_checkpoint"]))
+    model = load_eval_model(params, "cuda:0")
     qas = ds.qa[params["eval_set"]][:24]
     one = QAScorer(params, ds, model=model, device="cuda:0")
     many = QAScorer(params, ds, model=model,
@@ -3927,6 +4011,438 @@ def child_ranks(tree, root, rank, world, port, backend):
     return 0
 
 
+def bert_state_dict(seed):
+    """A BERT-base state dict with HF names (the text-stream layers, the
+    pooler, token types and the pretraining heads; the first LayerNorm in
+    the old gamma/beta names), weights drawn from ``seed`` at 0.02."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    H, F, V, P = (BERT_BASE[k] for k in ("hidden", "intermediate", "vocab",
+                                         "positions"))
+    shapes = {"bert.embeddings.word_embeddings.weight": (V, H),
+              "bert.embeddings.position_embeddings.weight": (P, H),
+              "bert.embeddings.token_type_embeddings.weight": (2, H),
+              "bert.embeddings.LayerNorm.gamma": (H,),
+              "bert.embeddings.LayerNorm.beta": (H,),
+              "bert.pooler.dense.weight": (H, H), "bert.pooler.dense.bias": (H,),
+              "cls.seq_relationship.weight": (2, H),
+              "cls.seq_relationship.bias": (2,)}
+    for i in range(BERT_BASE["layers"]):
+        base = f"bert.encoder.layer.{i}"
+        for sub, (o, n) in (("attention.self.query", (H, H)),
+                            ("attention.self.key", (H, H)),
+                            ("attention.self.value", (H, H)),
+                            ("attention.output.dense", (H, H)),
+                            ("intermediate.dense", (F, H)),
+                            ("output.dense", (H, F))):
+            shapes[f"{base}.{sub}.weight"] = (o, n)
+            shapes[f"{base}.{sub}.bias"] = (o,)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"{base}.{ln}.weight"] = (H,)
+            shapes[f"{base}.{ln}.bias"] = (H,)
+    return {k: torch.randn(s, generator=g) * 0.02 for k, s in shapes.items()}
+
+
+def weights_phase(card, attention, failures):
+    """Phase 11: the weight tools on the card with the flagship model. A
+    reference-layout crct.ckpt of the seeded random weights through
+    cli.convert_checkpoint, evaluated and served through K1 against the
+    same weights loaded directly; a BERT-base through cli.import_bert into
+    cli.train -start_checkpoint, a few bf16 steps through K1 and K2 from
+    the imported text stream. Returns {"k1"/"k2": {path: {(dtype, shape
+    name): launches}}}."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from crct_tpu_torch.cli import convert_checkpoint as cli_convert
+    from crct_tpu_torch.cli import evaluate as cli_eval
+    from crct_tpu_torch.cli import import_bert as cli_import
+    from crct_tpu_torch.cli import train as cli_train
+    from crct_tpu_torch.config import read_command_line
+    from crct_tpu_torch.data.synthetic import generate_dataset
+    from crct_tpu_torch.serve import make_server
+    from crct_tpu_torch.train import eval_loop, train_loop
+    from crct_tpu_torch.train.optimizer import language_weight_keys
+
+    counts = {"k1": {}, "k2": {}}
+
+    def kernel_counts():
+        return {(k, d, n): (attention.LAUNCHES if k == "k1" else
+                            attention.BWD_LAUNCHES)[(d, *s)]
+                for n, s in SHAPES.items() for d in ("float32", "bfloat16")
+                for k in ("k1", "k2")}
+
+    def counted(path, fn):
+        before = kernel_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for (k, d, n), c in kernel_counts().items():
+            if c > before[(k, d, n)]:
+                counts[k].setdefault(path, {})[(d, n)] = c - before[(k, d, n)]
+        return out
+
+    def quiet(fn):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            result = fn()
+        return result, out.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="crct_weights_") as root:
+        argv = eval_data(root)
+        base, direct = argv[:-2], argv[-1]
+        # 1. a published-layout checkpoint of the same weights
+        t0 = time.perf_counter()
+        sd = torch.load(direct, map_location="cpu",
+                        weights_only=False)["model_state_dict"]
+        n_model = len(sd)
+        for key in [k for k in sd if k.endswith("embeddings.LayerNorm.weight")
+                    or k.endswith("embeddings.LayerNorm.bias")]:
+            sd[key.replace(".weight", ".gamma").replace(".bias", ".beta")] = \
+                sd.pop(key)
+        g = torch.Generator().manual_seed(SEED)
+        for key, shape in LEGACY_KEYS.items():
+            sd["bert_pretrained." + key] = torch.randn(shape, generator=g)
+        src, dst = (os.path.join(root, n) for n in ("crct.ckpt",
+                                                     "converted.ckpt"))
+        torch.save({"model_state_dict": sd}, src)
+        del sd
+        _, text = quiet(lambda: cli_convert.main([src, dst]))
+        convert_s = time.perf_counter() - t0
+        want = (f"converted {n_model} tensors; skipped {len(LEGACY_KEYS)} "
+                f"legacy/unused keys")
+        if want not in text:
+            failures.append(f"convert_checkpoint printed {text!r}, want "
+                            f"{want!r}")
+
+        # 2. cli.evaluate on it, and on the weights loaded directly
+        runs = {}
+        for name, ckpt in (("converted", dst), ("direct", direct)):
+            rec = EvalRecorder(eval_loop)
+            preds = os.path.join(root, f"{name}.jsonl")
+
+            def run():
+                with rec:
+                    return cli_eval.main(base + [
+                        "-save_name", name, "-start_checkpoint", ckpt,
+                        "-predictions_out", preds])
+            t0 = time.perf_counter()
+            (total, breakdown), text = quiet(
+                lambda: counted(f"weights: eval {name}", run))
+            with open(preds) as f:
+                recs = [json.loads(ln) for ln in f]
+            runs[name] = dict(total=total, breakdown=breakdown, rec=rec,
+                              recs=recs, text=text,
+                              seconds=time.perf_counter() - t0)
+            if f"number of keys transferred: {n_model}\n" not in text:
+                failures.append(f"weights: eval of the {name} checkpoint "
+                                f"did not transfer {n_model} tensors")
+        conv, dirc = runs["converted"], runs["direct"]
+        rows_equal = all(np.array_equal(v, w) and np.array_equal(o, wo)
+                         for (v, o), (w, wo) in zip(conv["rec"].rank,
+                                                    dirc["rec"].rank))
+        if not (rows_equal and len(conv["rec"].rank) == len(dirc["rec"].rank)
+                and np.array_equal(conv["total"], dirc["total"])
+                and np.array_equal(conv["breakdown"], dirc["breakdown"])):
+            failures.append("weights: the converted checkpoint's eval "
+                            "differs from the directly loaded weights'")
+        k1 = sum(counts["k1"].get("weights: eval converted", {}).values())
+        if not k1:
+            failures.append("weights: no K1 launch in the converted eval")
+        n_q = int(conv["total"][0, 1])
+        say("weights", f"cli.convert_checkpoint of a reference-layout "
+                       f"crct.ckpt (the flagship model's random weights, "
+                       f"seed {SEED}; {len(LEGACY_KEYS)} legacy keys, "
+                       f"gamma/beta names): '{want}' in {convert_s:.1f} s "
+                       f"(writing the source included); cli.evaluate on "
+                       f"{n_q} questions: tables and per-row NSP "
+                       f"probabilities of {sum(len(v) for v, _ in conv['rec'].rank)} "
+                       f"rows {'bit-equal' if rows_equal else 'NOT equal'} "
+                       f"to the directly loaded weights' ({conv['seconds']:.1f}"
+                       f" s and {dirc['seconds']:.1f} s, loading included); "
+                       f"{k1} K1 launches ({card})")
+
+        # 3. serving the converted weights through K1
+        params = read_command_line(base + ["-save_name", "serve",
+                                           "-start_checkpoint", dst])
+        params["port"] = 0
+        server, text = quiet(lambda: make_server(params, port=0,
+                                                 device="cuda"))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/v1/answer"
+        asked, seen = [], {}
+        for gid, qa in enumerate(
+                server.scorer.dataset.qa["test"][:N_SERVE_WEIGHTS]):
+            img = int(qa["image_index"])
+            asked.append((gid, img, seen.get(img, 0)))
+            seen[img] = seen.get(img, 0) + 1
+        try:
+            replies = counted("weights: serve", lambda: [post(
+                url, {"image_index": img, "question_id": qi})
+                for _, img, qi in asked])
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        probs = conv["rec"].full_probs()
+        same = ties = 0
+        for (gid, _, _), (status, rec, _) in zip(asked, replies):
+            check_rec(rec, failures, "weights: /v1/answer")
+            if status != 200:
+                failures.append(f"weights: /v1/answer status {status}")
+            elif rec["cls_output"] == conv["recs"][gid]["cls_output"]:
+                same += 1
+            elif top_gap(probs[gid]) <= 1e-4:
+                ties += 1
+            else:
+                failures.append(f"weights: served {rec['cls_output']!r}, "
+                                f"evaluate chose "
+                                f"{conv['recs'][gid]['cls_output']!r}")
+        k1 = sum(counts["k1"].get("weights: serve", {}).values())
+        if not k1:
+            failures.append("weights: no K1 launch while serving")
+        say("weights", f"make_server on the converted checkpoint: "
+                       f"{len(asked)} /v1/answer requests, answers equal to "
+                       f"evaluate()'s for {same}, {ties} at a near-tie; "
+                       f"{k1} K1 launches; median "
+                       f"{np.median([r[2] for r in replies]):.1f} ms a "
+                       f"request ({card})")
+
+        # 4. BERT-base through cli.import_bert into cli.train
+        t0 = time.perf_counter()
+        bert = bert_state_dict(SEED)
+        torch.save(bert, os.path.join(root, "pytorch_model.bin"))
+        out = os.path.join(root, "bert.ckpt")
+        _, text = quiet(lambda: cli_import.main(
+            [os.path.join(root, "pytorch_model.bin"), out]))
+        import_s = time.perf_counter() - t0
+        imported = torch.load(out, map_location="cpu",
+                              weights_only=False)["model_state_dict"]
+        imported = {k[len("bert_pretrained."):]: v
+                    for k, v in imported.items()}
+        n_text = len(language_weight_keys())
+        want = f"imported {n_text} BERT tensors; skipped 5 "
+        if want not in text or set(imported) != language_weight_keys():
+            failures.append(f"import_bert printed {text!r}; want {want!r} "
+                            f"and the {n_text} text-stream keys")
+        data = generate_dataset(os.path.join(root, "train"),
+                                n_images=WEIGHT_TRAIN_IMAGES, division=8,
+                                n_questions=4, feat_dim=1024,
+                                splits=("train",), seed=SEED)
+        ds_json = os.path.join(root, "train.json")
+        with open(ds_json, "w") as f:
+            json.dump(dict(data, main_folder="",
+                           splits=["train", "train", "train"],
+                           save_path=os.path.join(root, "results"),
+                           max_seq_len=124, max_vis_features=44,
+                           categories=228), f)
+        at_step0 = {}
+        real_load = train_loop.Trainer._maybe_load_checkpoint
+
+        def load_and_keep(self):
+            real_load(self)
+            at_step0.update({k: v.detach().cpu().clone() for k, v in
+                             self.model.state_dict().items()
+                             if k in imported})
+        t0 = time.perf_counter()
+        with mock.patch.object(train_loop.Trainer, "_maybe_load_checkpoint",
+                               load_and_keep):
+            trainer, text = quiet(lambda: counted(
+                "weights: bert train", lambda: cli_train.main([
+                    "-qa_file", "qa_pairs.npy", "-dataset_config", ds_json,
+                    "-model_config", os.path.join(HERE, "config",
+                                                  "vilbert.json"),
+                    "-batch_size", str(B_TRAIN), "-bf16", "-num_epochs", "1",
+                    "-num_workers", "1", "-no_eval", "-seed", str(SEED),
+                    "-save_name", "bert", "-start_checkpoint", out])))
+        train_s = time.perf_counter() - t0
+        intact = (set(at_step0) == set(imported) and all(
+            torch.equal(at_step0[k], v.float()) for k, v in imported.items()))
+        steps = WEIGHT_TRAIN_IMAGES * 4 * 2 // B_TRAIN
+        kk = {k: sum(counts[k].get("weights: bert train", {}).values())
+              for k in ("k1", "k2")}
+        moved = sum(not torch.equal(trainer.model.state_dict()[k].cpu(),
+                                    at_step0[k]) for k in at_step0)
+        if not intact:
+            failures.append("weights: the text stream at step 0 is not the "
+                            "imported BERT's")
+        if f"number of keys transferred: {n_text}\n" not in text:
+            failures.append(f"weights: cli.train did not transfer the "
+                            f"{n_text} text-stream tensors")
+        if trainer.step != steps or not kk["k1"] or not kk["k2"] or \
+                moved == 0:
+            failures.append(f"weights: BERT-initialized training took "
+                            f"{trainer.step} steps (want {steps}), K1/K2 "
+                            f"launches {kk}, {moved} tensors moved")
+        say("weights", f"cli.import_bert of a seeded BERT-base "
+                       f"({BERT_BASE['layers']} layers, hidden "
+                       f"{BERT_BASE['hidden']}, intermediate "
+                       f"{BERT_BASE['intermediate']}): '{want.strip()}' in "
+                       f"{import_s:.1f} s; cli.train -start_checkpoint, "
+                       f"bf16, batch {B_TRAIN}: {n_text} tensors transferred,"
+                       f" the text stream at step 0 "
+                       f"{'bit-equal to' if intact else 'NOT'} the imported "
+                       f"weights, {trainer.step} steps in {train_s:.1f} s "
+                       f"(model build and checkpoint included), {kk['k1']} "
+                       f"K1 and {kk['k2']} K2 bf16 launches, {moved} of "
+                       f"them moved by the steps ({card})")
+        del trainer
+        torch.cuda.empty_cache()
+    say("weights", "the Orbax path (JAX package checkpoints) is not run on "
+                   "the card: its machine has no tensorstore. "
+                   "tests/test_torch_checkpoint.py holds it against the JAX "
+                   "package on the CPU; cli.convert_checkpoint moves such a "
+                   "checkpoint to a torch file on a host with tensorstore.")
+    return counts
+
+
+def proof_shapes(attention, rk):
+    """Patches of the three kernels' launch functions that record what the
+    proof gives them: (dtype, B, H, Lq, Lk, D) of each K1 and K2 launch,
+    and the inputs of K3's first call at each (cotangent dtype, P, C,
+    pyramid, map dtype, sampling ratio), copied. They call through, so
+    each launch is counted as before."""
+    seen = {"k1": set(), "k2": set(), "k3": {}}
+    launch, launch_bwd = attention._launch, attention._launch_bwd
+    k3 = rk.mlra_backward_kernel
+
+    def k1(q, k, *args, **kwargs):
+        seen["k1"].add((str(q.dtype)[6:], *q.shape[:3], k.shape[2],
+                        q.shape[3]))
+        return launch(q, k, *args, **kwargs)
+
+    def k2(q, k, *args, **kwargs):
+        seen["k2"].add((str(q.dtype)[6:], *q.shape[:3], k.shape[2],
+                        q.shape[3]))
+        return launch_bwd(q, k, *args, **kwargs)
+
+    def roi(g, geo, shapes, dtype, S):
+        key = (str(g.dtype)[6:], g.shape[1], g.shape[3],
+               tuple(map(tuple, shapes)), str(dtype)[6:], S)
+        if key not in seen["k3"]:
+            seen["k3"][key] = (g.detach().clone(),
+                               {n: t.clone() for n, t in geo.items()})
+        return k3(g, geo, shapes, dtype, S)
+
+    patches = (mock.patch.object(attention, "_launch", k1),
+               mock.patch.object(attention, "_launch_bwd", k2),
+               mock.patch.object(rk, "mlra_backward_kernel", roi))
+    return seen, patches
+
+
+def check_proof_shapes(attention, rk, seen, card, failures):
+    """K1 and K2 against their plain versions at each (dtype, B, H, Lq, Lk,
+    D) the proof launched them at, on random inputs as the kernel phase
+    draws them (both masks, dropout 0 and 0.1) and with its limits; K3
+    against its plain version on the geometry of the proof's first call at
+    each of its shapes, with that call's cotangent and with a unit-normal
+    one, with the kernel phase's limits."""
+    import torch
+    for kname, seen_k, errors in (("K1", seen["k1"], k1_errors),
+                                  ("K2", seen["k2"], k2_errors)):
+        for dname, rows, H, Lq, Lk, D in sorted(seen_k):
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            name = f"proof {kname} (B, H, Lq, Lk, D) = {(rows, H, Lq, Lk, D)}"
+            err = errors(attention, name, rows, (H, Lq, Lk, D),
+                         getattr(torch, dname), g, failures)
+            err = err[0] if kname == "K1" else err
+            say("proof", f"{name} {dname}: max abs err {err:.3g} against "
+                         f"the plain version (tol {K_TOL[dname]}"
+                         f"{'' if kname == 'K1' else ' of max(1, |grad|)'}; "
+                         f"both masks, dropout 0 and 0.1; {card})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for (gname, P, C, shapes, dname, S), (g_path, geo) in sorted(
+            seen["k3"].items(), key=lambda kv: kv[0][:2]):
+        dtype = getattr(torch, dname)
+        what = (f"proof K3 N {g_path.shape[0]}, P {P}, C {C}, pyramid "
+                f"{shapes}, {gname} into {dname}")
+        # the path's cotangent is small (a loss over many rois), which makes
+        # max(1, |grad|) loose: a unit-normal one on the same geometry too
+        unit = torch.randn(g_path.shape, device="cuda", generator=gen,
+                           dtype=torch.float32).to(g_path.dtype)
+        for cot, g in (("the path's cotangent", g_path),
+                       ("a unit-normal cotangent", unit)):
+            got = rk.mlra_backward_kernel(g, geo, shapes, dtype, S)
+            want = rk.mlra_backward_reference(g, geo, shapes, dtype, S)
+            torch.cuda.synchronize()
+            err, limit, ok = roi_error(got, want, dtype)
+            top = max(w.abs().max().item() for w in want)
+            if not ok:
+                failures.append(f"{what}, {cot}: max abs err {err} "
+                                f"({limit})")
+            say("proof", f"{what}, the proof's geometry and {cot}: max abs "
+                         f"err {err:.3g} against the plain version, largest "
+                         f"|grad| {top:.3g} ({limit}; {card})")
+    for kname in ("k1", "k2", "k3"):
+        if not seen[kname]:
+            failures.append(f"proof: no {kname.upper()} shape to check")
+
+
+def proof_phase(card, failures):
+    """Phase 12: crct_tpu_torch.tools.full_pipeline_proof --fast on the
+    card. Fails where a stage fails, K1, K2 or K3 never launched, or a
+    kernel disagrees with its plain version at a shape the proof gave it;
+    the accuracy is printed beside chance, not gated (--fast proves the
+    plumbing). Returns the proof's JSON line and the kernels' launches in
+    it by key."""
+    import io
+    from contextlib import ExitStack, redirect_stdout
+
+    import torch
+
+    from crct_tpu_torch.ops import attention, roi_align_kernel
+    from crct_tpu_torch.tools import full_pipeline_proof
+
+    before = (dict(attention.LAUNCHES), dict(attention.BWD_LAUNCHES),
+              dict(roi_align_kernel.LAUNCHES))
+    seen, patches = proof_shapes(attention, roi_align_kernel)
+    with tempfile.TemporaryDirectory(prefix="crct_proof_") as root:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with ExitStack() as stack, redirect_stdout(out):
+                for patch in patches:
+                    stack.enter_context(patch)
+                res = full_pipeline_proof.main(["--fast", "--root", root])
+        except Exception as exc:                    # a stage failed
+            failures.append(f"proof: {exc!r}; last lines "
+                            f"{out.getvalue().splitlines()[-5:]}")
+            return None, {"k1": {}, "k2": {}, "k3": {}}
+        seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # launches by kernel and key ((dtype, H, Lq, Lk, D); K3 (P, C))
+    launches = {name: {k: c - b.get(k, 0) for k, c in now.items()
+                       if c > b.get(k, 0)}
+                for name, now, b in zip(
+                    ("k1", "k2", "k3"), (attention.LAUNCHES,
+                                         attention.BWD_LAUNCHES,
+                                         roi_align_kernel.LAUNCHES), before)}
+    st = res["stages"]
+    for name, stage in st.items():
+        say("proof", f"{name}: {stage['seconds']:.1f} s, K1 {stage['k1']}, "
+                     f"K2 {stage['k2']}, K3 {stage['k3']} launches ({card})")
+    need = {"K3 in detector_train": st["detector_train"]["k3"],
+            "K1 in train": st["train"]["k1"],
+            "K2 in train": st["train"]["k2"],
+            "K1 in evaluate": st["evaluate"]["k1"]}
+    for what, n in need.items():
+        if not n:
+            failures.append(f"proof: no {what}")
+    say("proof", f"full_pipeline_proof --fast ({res['charts_train']} + "
+                 f"{res['charts_test']} charts, {res['det_iters']} detector "
+                 f"iterations, {res['qa_epochs']} QA epoch) in {seconds:.1f} "
+                 f"s: held-out accuracy {res['e2e_learned_heldout_accuracy']}"
+                 f" (cls only {res['cls_only_accuracy']}, tolerance "
+                 f"{res['tolerance_accuracy']}) beside chance {res['chance']}"
+                 f" on {res['questions']} questions; not gated at --fast "
+                 f"sizes ({card})")
+    check_proof_shapes(attention, roi_align_kernel, seen, card, failures)
+    return res, launches
+
+
 def kernel_phase(card, attention, build, roi_align, rk, failures):
     """Phase 3: every kernel against its plain version, timed; the rows of
     the kernels' JSON line by (kernel, shape, dtype)."""
@@ -3939,7 +4455,7 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
             say("kernel", f"K1 {kname} {row['dtype']} (B, H, Lq, Lk, D) = "
                           f"{(B, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
-                          f"{1e-5 if row['dtype'] == 'float32' else 2e-2}), "
+                          f"{K_TOL[row['dtype']]}), "
                           f"lse within {lse_err:.3g} of max(1, |lse|) (tol "
                           f"1e-5); device times: kernel {row['ms']:.4f} ms, plain "
                           f"{row['plain_ms']:.4f} ms, sdpa "
@@ -3981,7 +4497,7 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
             say("kernel", f"K2 {kname} {row['dtype']} (B, H, Lq, Lk, D) = "
                           f"{(B_TRAIN, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
-                          f"{1e-5 if row['dtype'] == 'float32' else 2e-2} of "
+                          f"{K_TOL[row['dtype']]} of "
                           f"max(1, |grad|)); <out,C> = <v,dv> under dropout "
                           f"to {ident:.2g} relative; kernel {row['ms']:.4f} "
                           f"ms, plain {row['plain_ms']:.4f} ms, sdpa backward"
@@ -4106,6 +4622,13 @@ def main():
         par = parallel_phase(card, attention, batch, params, failures)
     if "cards" in phases:
         cards_phase(card, batch, params, failures)
+    if "weights" in phases:
+        weights = weights_phase(card, attention, failures)
+    if "proof" in phases:
+        proof, proof_launches = proof_phase(card, failures)
+        if not whole and proof is not None:
+            print(json.dumps({"phase": "proof", "card": card, **proof}),
+                  flush=True)
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -4132,23 +4655,35 @@ def main():
                      "in-train eval": in_train_k1[kname], **paths}
         paths.update({p: c[(kname, dname)] for p, c in par_k1.items()
                       if c.get((kname, dname))})
+        paths.update({p: c[(dname, kname)] for p, c in weights["k1"].items()
+                      if c.get((dname, kname))})
         row["path"] = ", ".join(paths)
         row["launches"] = sum(paths.values())
+        row["proof_launches"] = sum(
+            c for k, c in proof_launches["k1"].items()
+            if k[0] == dname and k[2:4] == SHAPES[kname][1:3])
     for (kname, dname), row in bwd_rows.items():
         paths = {} if dname == "float32" else {
             "train": train_counts[kname][1]}
         paths.update({p: c[(kname, dname)] for p, c in par_k2.items()
                       if c.get((kname, dname))})
+        paths.update({p: c[(dname, kname)] for p, c in weights["k2"].items()
+                      if c.get((dname, kname))})
         row["path"] = ", ".join(paths) or "none"
         row["launches"] = sum(paths.values())
+        row["proof_launches"] = sum(
+            c for k, c in proof_launches["k2"].items()
+            if k[0] == dname and k[2:4] == SHAPES[kname][1:3])
     kernels = list(fwd_rows.values()) + list(bwd_rows.values())
     # the detector trains in fp32: no main path runs K3 in bf16
     for row in roi_rows:
         shape = row["name"][len("roi_align_bwd["):].split(",")[0].rstrip("]")
         fp32 = row["dtype"] == "float32"
-        row["path"] = ("detector train, gloo detector" if fp32 else "none")
+        row["path"] = "detector train, gloo detector" if fp32 else "none"
         row["launches"] = (roi_counts[shape] + par["gloo detector"].get(
             shape, 0)) if fp32 else 0
+        row["proof_launches"] = proof_launches["k3"].get(
+            (ROI_SHAPES[shape][0], C_FPN), 0) if fp32 else 0
     kernels += roi_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

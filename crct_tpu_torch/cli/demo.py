@@ -10,6 +10,9 @@ candidate's probability. Scores on the card through the eval step unless
     python -m crct_tpu_torch.cli.demo -qa_file qa_pairs_test.npy \\
         -dataset_config config/plotqa.json -eval_set test \\
         -start_checkpoint crct.ckpt [-device cpu | -cuda_num N]
+
+``-start_checkpoint`` loads as ``cli.evaluate``'s does: the port's, a
+reference ``crct.ckpt`` or a JAX package checkpoint, in transfer mode.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ Trains on the card unless ``--device cpu`` is given:
 ``--cuda-num N`` picks the card. The flags are the JAX CLI's. Model choice
 follows frcnn.py:137-155: Mask R-CNN R50 for plotqa, Faster R-CNN R50 for
 plotqa_colorless/dvqa, R101 for figure_qa. ``--load-weights`` takes a port
-detector checkpoint, a torch ``.pth`` or a Detectron2 model-zoo ``.pkl``.
+or JAX detector checkpoint (the latter an Orbax directory, read with
+tensorstore), a torch ``.pth`` or a Detectron2 model-zoo ``.pkl``.
 ``--bf16`` trains under bf16 autocast over fp32 parameters (box decoding
 and losses stay fp32).
 
@@ -49,7 +50,8 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=1344)
     p.add_argument("--checkpoint-every", type=int, default=5000)
     p.add_argument("--load-weights", default="",
-                   help="port detector ckpt, torch .pth, or Detectron2 "
+                   help="port or JAX detector ckpt, torch .pth, or "
+                        "Detectron2 "
                         "model-zoo .pkl (e.g. mask_rcnn_R_50_FPN_1x, the "
                         "reference's default init, frcnn.py:215)")
     p.add_argument("--freeze-at", type=int, default=None,

@@ -6,8 +6,11 @@ Evaluates on the card unless ``-device cpu`` is given:
         -dataset_config config/plotqa.json -eval_set test \\
         -start_checkpoint crct.ckpt [-cuda_num N] [-bf16]
 
-``-start_checkpoint`` is a torch file: one of the port's checkpoints or a
-reference ``crct.ckpt``. Resumable: the question ids already in the result
+``-start_checkpoint`` is one of the port's checkpoints, a reference
+``crct.ckpt`` or a JAX package checkpoint (an Orbax directory; reading one
+needs tensorstore, else convert it with ``cli.convert_checkpoint`` on a
+host that has it), loaded in transfer mode: the parameters whose name and
+shape match, the rest as initialized. Resumable: the question ids already in the result
 CSV are left out of the index set and the accumulators reload from their
 snapshots (reference evaluation.py:69-126,146-153). ``-predictions_out
 answers.jsonl`` also writes one JSON record per question (answer,
@@ -37,7 +40,7 @@ from crct_tpu_torch.train.eval_loop import (evaluate, get_prev_done_ids,
                                             print_acc_table,
                                             print_breakdown_table,
                                             resolve_eval_question_batch)
-from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
+from crct_tpu_torch.utils.checkpoint import load_start_checkpoint
 from crct_tpu_torch.utils.device import params_device
 
 
@@ -46,12 +49,7 @@ def load_eval_model(params, device):
     ``-start_checkpoint`` (else a deterministic init from ``-seed``)."""
     model = build_model(params, device=device)
     if params.get("start_checkpoint"):
-        missing_head = load_weights(
-            model, load_torch_checkpoint(params["start_checkpoint"]))
-        if missing_head:
-            print("WARNING: -fast_scorer, but the checkpoint carries no "
-                  "fast_scorer head: the head is RANDOM. Train one with "
-                  "cli.train_fast_scorer first.", flush=True)
+        load_start_checkpoint(model, params["start_checkpoint"])
     n = sum(p.numel() for p in model.parameters())
     print(f"Model's parameters: {n}")
     return model

@@ -33,7 +33,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Extract chart features")
     p.add_argument('--dir-path', type=str, default="")
     p.add_argument('--load-weights', type=str, required=True,
-                   help="a port detector checkpoint, a torch .pth/.bin, a "
+                   help="a port or JAX detector checkpoint, a torch "
+                        ".pth/.bin, a "
                         "Detectron2 .pkl, or 'none' for random weights")
     p.add_argument('--split', type=str, default="train")
     p.add_argument('--output', type=str, required=True)

@@ -8,12 +8,12 @@ Usage:
         -dataset_config config/plotqa.json -eval_set test \\
         -start_checkpoint crct.ckpt -port 8373 -device cuda
 
-``-start_checkpoint`` is a torch state dict in the reference layout (a
-reference ``crct.ckpt``); Orbax checkpoints of the JAX package are not read
-yet. ``-fast_scorer`` (with ``-fast_scorer_topk K``) serves through the
+``-start_checkpoint`` is one of the port's checkpoints, a reference
+``crct.ckpt`` or a JAX package checkpoint (an Orbax directory, read with
+tensorstore), loaded in transfer mode. ``-fast_scorer`` (with ``-fast_scorer_topk K``) serves through the
 fast-scorer head of a ``cli.train_fast_scorer`` checkpoint.
-``-serve_detector_weights det.ckpt`` (a port detector checkpoint, a torch
-``.pth``, a Detectron2 ``.pkl`` or ``none``) enables POST /v1/figures: chart
+``-serve_detector_weights det.ckpt`` (a port or JAX detector checkpoint, a
+torch ``.pth``, a Detectron2 ``.pkl`` or ``none``) enables POST /v1/figures: chart
 PNGs are ingested by the detector on the same device. With
 ``-serve_no_dataset`` the server loads no feature shards and serves only
 ingested figures. ``-mesh_shape N`` serves over the first N cards: a

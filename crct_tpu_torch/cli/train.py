@@ -18,8 +18,13 @@ the model is evaluated on at most 500 questions of ``-eval_set`` by the full
 protocol, each rank scoring its shard of them (``-no_eval`` skips it). With
 ``-fast_scorer`` the trained model has no fast-scorer head, as in the JAX
 trainer: the head trains afterwards (``cli.train_fast_scorer``).
-``-start_checkpoint`` takes a torch checkpoint in the reference layout: the
-port's own epoch checkpoints or a reference ``crct.ckpt``.
+``-start_checkpoint`` takes the port's own epoch checkpoints, a reference
+``crct.ckpt`` (or ``cli.import_bert``'s text stream) or a JAX package
+checkpoint (an Orbax directory, read with tensorstore), in transfer mode:
+the parameters whose name and shape match, the rest as initialized. With
+``-continue`` it also restores the optimizer state (the JAX optimizer's
+too, ``-opt_bf16_m`` and ``-batch_multiply`` included), the step and the
+epoch after the one in the checkpoint's name.
 """
 
 from __future__ import annotations

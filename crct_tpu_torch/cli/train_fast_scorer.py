@@ -5,8 +5,9 @@
         -save_name fs_run [-fs_steps 2000] [-fs_lr 1e-3] [-device cpu]
 
 On the card unless ``-device cpu`` is given. Backbone weights come from
-``-start_checkpoint`` (a torch file in the port's or the reference layout)
-and stay frozen; only the light candidate head trains (listwise CE over
+``-start_checkpoint`` (the port's, a reference ``crct.ckpt`` or the JAX
+package's, loaded in transfer mode as the JAX CLI loads it) and stay
+frozen; only the light candidate head trains (listwise CE over
 each question's candidate set). The output, ``<save_path>/fast_scorer.ckpt``,
 holds backbone + head in fp32; evaluate or serve with ``-fast_scorer
 -start_checkpoint <out>`` for one backbone pass per question instead of the
@@ -22,9 +23,9 @@ from crct_tpu_torch.config import read_command_line
 from crct_tpu_torch.data.dataset import ChartQADataset
 from crct_tpu_torch.models.crct import build_model
 from crct_tpu_torch.train.fast_scorer_train import train_fast_scorer
-from crct_tpu_torch.utils.checkpoint import save_checkpoint
-from crct_tpu_torch.utils.convert import (FAST_SCORER_PREFIX,
-                                          load_torch_checkpoint, load_weights)
+from crct_tpu_torch.utils.checkpoint import (load_start_checkpoint,
+                                             save_checkpoint)
+from crct_tpu_torch.utils.convert import FAST_SCORER_PREFIX
 from crct_tpu_torch.utils.device import params_device
 
 
@@ -38,13 +39,8 @@ def main(argv=None):
     model = build_model(params, device=device)
     loaded = {}
     if params.get("start_checkpoint"):
-        loaded = load_torch_checkpoint(params["start_checkpoint"])
-        missing = load_weights(model, loaded)
-        head_keys = [k for k in model.state_dict()
-                     if k.startswith(FAST_SCORER_PREFIX)]
-        if missing and sorted(missing) != sorted(head_keys):
-            raise RuntimeError(f"checkpoint carries part of a fast_scorer "
-                               f"head: {sorted(missing)} missing")
+        loaded = load_start_checkpoint(model, params["start_checkpoint"],
+                                       warn_head=False)
 
     model, last_ce = train_fast_scorer(
         params, dataset, model,
@@ -55,7 +51,8 @@ def main(argv=None):
     # trained head
     state = {k: v.float() for k, v in model.state_dict().items()}
     state.update({k: v.float() for k, v in loaded.items()
-                  if k in state and not k.startswith(FAST_SCORER_PREFIX)})
+                  if k in state and v.shape == state[k].shape
+                  and not k.startswith(FAST_SCORER_PREFIX)})
     os.makedirs(params["save_path"], exist_ok=True)
     out = os.path.join(params["save_path"], "fast_scorer.ckpt")
     save_checkpoint(out, state)

@@ -11,22 +11,43 @@ of the pipeline, and ``stride_in_1x1`` and mean-only normalization come
 with them (:func:`detector_file_meta`).
 
 :func:`detector_flax_to_state_dict` carries the JAX package's detector
-params (as numpy) into the port's state dict, for the tests that hold the
-two packages against each other.
+params (as numpy) into the port's state dict: those of a JAX detector
+checkpoint (an Orbax directory, read by ``utils.checkpoint.
+load_checkpoint``), and those of the tests that hold the two packages
+against each other.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+# the last weights file read, keyed by (abspath, mtime): detector_file_meta
+# runs before the model is built and restore_detector_params right after,
+# and a file of hundreds of MB would otherwise be read twice
+_LOAD_CACHE: Dict[Tuple[str, float], Any] = {}
+
+
+def _cached(path: str, loader: Callable[[], Any]) -> Any:
+    key = (os.path.abspath(path), os.path.getmtime(path))
+    if key not in _LOAD_CACHE:
+        _LOAD_CACHE.clear()
+        _LOAD_CACHE[key] = loader()
+    return _LOAD_CACHE[key]
+
+
 def load_detector_torch_file(path: str) -> Dict[str, np.ndarray]:
     """A Detectron2 ``.pkl`` or a torch ``.pth``/``.bin`` state dict as
-    {key: ndarray}."""
+    {key: ndarray} (cached for the meta probe and the restore)."""
+    return _cached(path, lambda: _load_detector_torch_file(path))
+
+
+def _load_detector_torch_file(path: str) -> Dict[str, np.ndarray]:
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             data = pickle.load(f, encoding="latin1")
@@ -117,21 +138,36 @@ def convert_detector_state_dict(sd: Dict[str, np.ndarray]
     return out, skipped, meta
 
 
+def _load_checkpoint(path: str) -> Dict[str, Any]:
+    """A detector checkpoint of the port's (a torch file) or of the JAX
+    package's (an Orbax directory) as {"model_state_dict": the port's
+    state dict, "detector_meta": ...} (cached)."""
+    from crct_tpu_torch.utils.checkpoint import (is_orbax_checkpoint,
+                                                 load_checkpoint)
+
+    def load():
+        if is_orbax_checkpoint(path):
+            return load_checkpoint(path)
+        return torch.load(path, map_location="cpu", weights_only=False)
+    return _cached(path, load)
+
+
 def detector_file_meta(path: str) -> Dict[str, Any]:
     """The stride convention, pixel normalization and depth a weights file
-    needs, before the model is built. The port's own checkpoints carry
-    them in ``detector_meta``; a file without it gets torchvision's."""
+    needs, before the model is built. The port's and the JAX package's
+    checkpoints carry them in ``detector_meta`` (``depth`` absent from
+    older JAX ones: None); a file without it gets torchvision's."""
     if not path:
         return _layout_meta(False)
     if not path.endswith((".pkl", ".pth", ".bin")):
-        m = torch.load(path, map_location="cpu",
-                       weights_only=False).get("detector_meta")
+        m = _load_checkpoint(path).get("detector_meta")
         if m is None:
             return _layout_meta(False)
-        return {"stride_in_1x1": bool(m["stride_in_1x1"]),
-                "pixel_mean": [float(x) for x in m["pixel_mean"]],
-                "pixel_std": [float(x) for x in m["pixel_std"]],
-                "depth": m.get("depth")}
+        depth = m.get("depth")
+        return {"stride_in_1x1": bool(np.asarray(m["stride_in_1x1"])),
+                "pixel_mean": [float(x) for x in np.asarray(m["pixel_mean"])],
+                "pixel_std": [float(x) for x in np.asarray(m["pixel_std"])],
+                "depth": None if depth is None else int(np.asarray(depth))}
     sd = load_detector_torch_file(path)
     meta = _layout_meta(_is_detectron2(sd))
     meta["depth"] = _depth_from_keys(sd)
@@ -158,8 +194,8 @@ def transfer_state(model: torch.nn.Module, loaded: Dict[str, torch.Tensor],
 
 def restore_detector_params(model: torch.nn.Module, path: str,
                             verbose: bool = True) -> Dict[str, Any]:
-    """Load a port detector checkpoint, a torch ``.pth``/``.bin`` or a
-    Detectron2 ``.pkl`` into ``model``. Returns the file's meta."""
+    """Load a port or JAX detector checkpoint, a torch ``.pth``/``.bin`` or
+    a Detectron2 ``.pkl`` into ``model``. Returns the file's meta."""
     if path.endswith((".pkl", ".pth", ".bin")):
         sd, skipped, meta = convert_detector_state_dict(
             load_detector_torch_file(path))
@@ -168,8 +204,7 @@ def restore_detector_params(model: torch.nn.Module, path: str,
                   f"(e.g. {skipped[:3]})")
         transfer_state(model, sd, verbose)
         return meta
-    loaded = torch.load(path, map_location="cpu", weights_only=False)
-    transfer_state(model, loaded["model_state_dict"], verbose)
+    transfer_state(model, _load_checkpoint(path)["model_state_dict"], verbose)
     return detector_file_meta(path)
 
 

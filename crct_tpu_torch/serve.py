@@ -72,7 +72,7 @@ from crct_tpu_torch.train.eval_loop import (EVAL_TEXT_KEYS, EVAL_VIS_KEYS,
                                             resolve_eval_chunk,
                                             segmented_argmax,
                                             shortlist_rescore_rows)
-from crct_tpu_torch.utils.convert import load_torch_checkpoint, load_weights
+from crct_tpu_torch.utils.checkpoint import load_start_checkpoint
 from crct_tpu_torch.utils.device import resolve_device
 
 
@@ -109,8 +109,9 @@ class QAScorer:
     ``score`` takes a LIST of qa_pairs and answers them all through shared
     fixed-size dispatches. Runs on ``device`` (the card unless the caller
     asks for the CPU); the model's weights come from ``model``, else from
-    ``-start_checkpoint`` (a torch state dict in the reference layout), else
-    a deterministic init seeded by ``-seed``.
+    ``-start_checkpoint`` (the port's, a reference ``crct.ckpt`` or the JAX
+    package's; transfer mode, as the JAX scorer loads it), else a
+    deterministic init seeded by ``-seed``.
 
     Low-latency modes mirror the eval CLI's (-fast_scorer /
     -fast_scorer_topk): the light candidate head scores every candidate
@@ -135,13 +136,7 @@ class QAScorer:
         if model is None:
             model = build_model(params, device=self.device)
             if params.get("start_checkpoint"):
-                missing_head = load_weights(
-                    model, load_torch_checkpoint(params["start_checkpoint"]))
-                if missing_head:
-                    print("WARNING: -fast_scorer serving, but the "
-                          "checkpoint carries no fast_scorer head: the "
-                          "shortlist head is RANDOM. Train one with "
-                          "cli.train_fast_scorer first.", flush=True)
+                load_start_checkpoint(model, params["start_checkpoint"])
         if self.fast and not model.has_fast_scorer:
             raise ValueError("-fast_scorer serving needs a model with the "
                              "fast_scorer head")

@@ -36,8 +36,10 @@ from crct_tpu_torch.models.crct import CRCTModel, build_model
 from crct_tpu_torch.train.optimizer import AdamW, current_lr
 from crct_tpu_torch.utils.checkpoint import (checkpoint_name, epoch_from_name,
                                              epoch_iter_from_name,
-                                             load_checkpoint, save_checkpoint,
-                                             to_host, transfer_params)
+                                             load_checkpoint,
+                                             restore_opt_state,
+                                             save_checkpoint, to_host,
+                                             transfer_params)
 from crct_tpu_torch.utils.device import resolve_device
 from crct_tpu_torch.utils.logging import init_log_file, is_rank0, log_line
 
@@ -122,6 +124,10 @@ class Trainer:
             parallel.rank_seed(int(params_dict.get("seed", 0)) + 17))
 
     def _maybe_load_checkpoint(self) -> None:
+        """``-start_checkpoint`` (the port's, a reference ``crct.ckpt`` or
+        the JAX package's): its parameters in transfer mode; with
+        ``-continue`` also the optimizer state, the step and the epoch
+        after the one in its name."""
         pd = self.params_dict
         ckpt = pd.get("start_checkpoint")
         if not ckpt:
@@ -130,7 +136,8 @@ class Trainer:
         transfer_params(self.model, loaded["model_state_dict"])
         if pd.get("continue"):
             if "optimizer_state_dict" in loaded:
-                self.optimizer.load_state_dict(loaded["optimizer_state_dict"])
+                restore_opt_state(self.optimizer,
+                                  loaded["optimizer_state_dict"])
             self.step = int(loaded.get("iter_id", 0))
             self.start_epoch = epoch_from_name(ckpt) + 1
 

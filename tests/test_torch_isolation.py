@@ -1,11 +1,11 @@
 """The port stands alone, and runs on the CPU only when asked.
 
 crct_tpu_torch imports torch and numpy and nothing of JAX or of the JAX
-package, and PIL, pandas, matplotlib, tensorboard, scipy and tensorstore
-only inside the functions that need them (the machine with the card has
-none of the first three); its entry points run on the card unless the caller
-passes device="cpu", and with no card they raise instead of carrying on on
-the CPU.
+package, and PIL, pandas, matplotlib, tensorboard, scipy, tensorstore,
+tensorflow and transformers only inside the functions that need them (the
+machine with the card has no tensorstore); its entry points run on the
+card unless the caller passes device="cpu", and with no card they raise
+instead of carrying on on the CPU.
 """
 
 import subprocess
@@ -32,10 +32,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                                             "orbax", "crct_tpu", "PIL",
                                             "pandas", "matplotlib",
                                             "tensorboard", "scipy",
-                                            "tensorstore"))
+                                            "tensorstore", "tensorflow",
+                                            "transformers"))
         assert not bad, bad
         assert "crct_tpu_torch.serve" in names, names
         assert "crct_tpu_torch.parallel.mesh" in names, names
+        for name in ("cli.convert_checkpoint", "cli.import_bert",
+                     "tools.full_pipeline_proof"):
+            assert "crct_tpu_torch." + name in names, names
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -162,3 +166,12 @@ def test_ingest_entry_points_default_to_the_card(no_card):
                               canvas=(32, 32), depth=14)
     with pytest.raises(RuntimeError, match="no card"):
         FigureIngestor.from_weights("none", num_classes=4, canvas=(32, 32))
+
+
+def test_weight_tools_and_the_proof_default_to_the_card(no_card, tmp_path):
+    """The proof raises before it draws a chart; the checkpoint readers and
+    the weight tools run no model, and take no device."""
+    from crct_tpu_torch.tools.full_pipeline_proof import main
+    with pytest.raises(RuntimeError, match="no card"):
+        main(["--fast", "--root", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
