@@ -11,8 +11,9 @@ subset (plus "times": K1 and K2 timed through fused_attention alone, and K3
 through mlra_backward_kernel, at the flagship shapes in both dtypes, as the
 kernel phase times them; and "cards", on a machine with 2 or more cards:
 cli.train -ddp under torchrun over every card, the parallel phase's rank
-group over nccl with one rank a card, and a QAScorer with a replica on each
-card against one card), and --seeds
+group over nccl with one rank a card, a QAScorer with a replica on each
+card against one card, and the bench's QA sections under torchrun over
+every card), and --seeds
 the generator seeds of each cross-check step; such a run prints each phase's
 result as a JSON line and not the result line. Comparing two checkouts on
 one card: parent, change, change, parent, with --phases times,cross.
@@ -144,11 +145,35 @@ Phases, one line each (any failure exits non-zero):
                each of its shapes (its 320 x 320 pyramid) with the proof's
                cotangent and a unit-normal one, with the kernel phase's
                limits.
+ 13. bench   - python -m crct_tpu_torch.bench --roofline --all in a child
+               process (the port of bench.py: the flagship's bf16 train
+               step at batch 80, eval, fast scorer, top-k 8 and the full
+               protocol through evaluate(), the input pipeline, the
+               roofline, charts to answers, the detector steps at 800 x 1088
+               in fp32, bf16 and with the fast NMS, and at 512 px): its one
+               JSON line has every key of bench.py's run under the port's
+               names, every number finite and above 0, every MFU at most
+               100 %, K1, K2 and K3 launched in each section that runs them,
+               the card's name and power limit (saved to
+               chiprun_out/chip_smoke_bench.json); with --phases cards also
+               its QA sections under torchrun over every card.
+ 14. tools   - the eight measurement tools of crct_tpu_torch/tools/ (serve
+               bench, eval overhead profile, eval chunk sweep, attention
+               shape bench, detector step knockouts, RoIAlign backward
+               compare, optimizer variants, shortlist miss rate) at small
+               sizes, each through its main() in this process: its JSON
+               line checked as the bench's and by what it measures (no
+               client error and coalescing; the plain and SDPA paths launch
+               no kernel; K3 within 2e-5 of max(1, |grad|) of the
+               scatter-add gradient; the knockouts leave mask_rcnn's and
+               box_ops' namespaces as they were).
 The line before the last holds the kernels' numbers as JSON, a row for each
 kernel, shape and dtype (with "proof_launches": the kernel's launches in
 the proof, for K1 and K2 those of the tiny model's attention of the same
 kind, Lq and Lk, at its own heads and head width, for K3 those of the
-same P on its 320 x 320 pyramid, apart from "launches"); the last line
+same P on its 320 x 320 pyramid, apart from "launches"; "launches" and
+"path" include the bench's sections and the tools' runs at the row's
+shape); the last line
 is {"ok": true, "device": {...}}. With no card, or without the port's
 package beside this script, it prints no result and exits non-zero.
 """
@@ -213,7 +238,46 @@ TRAIN_IMAGES = 120            # synthetic figures x 4 questions x 2 (the
                               # negatives) = 960 items: 12 steps of 80
 KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
 PHASES = ("kernel", "serve", "eval", "train", "cross", "detector", "ingest",
-          "parallel", "weights", "proof")
+          "parallel", "weights", "proof", "bench", "tools")
+# the bench phase's flags: bench.py's default run, the roofline, and --all's
+# detector variants (the bf16 one launches K3 in bf16)
+BENCH_ARGV = ("--roofline", "--all")
+# bench.py's keys of its default run with --roofline, under the port's names
+# (the peak-bound ones name the card), by the section that writes them
+BENCH_KEYS = {
+    "train": ("attention_path", "train_step_tflop", "train_step_ms",
+              "mfu_pct_h100_bf16", "train_step_tflop_analytic",
+              "mfu_pct_h100_bf16_analytic"),
+    "eval": ("eval_candidate_rows_per_sec_per_chip",
+             "eval_questions_per_sec_per_chip_at_120_fanout"),
+    "fast_scorer": ("fast_scorer_questions_per_sec_per_chip",
+                    "fast_topk8_questions_per_sec_per_chip_derived"),
+    "fast_topk8": ("fast_topk8_questions_per_sec_per_chip",
+                   "eval_protocol_questions_per_sec_per_chip_measured",
+                   "eval_measured_mean_candidates"),
+    "input_pipeline": ("input_pipeline_samples_per_sec_per_host",),
+    "roofline": ("roofline_fwd_ms", "roofline_fwd_mfu_pct",
+                 "roofline_grad_ms", "roofline_grad_mfu_pct",
+                 "roofline_grad_no_dropout_ms", "roofline_step_ms",
+                 "roofline_optimizer_ms", "roofline_dropout_ms"),
+    "e2e": ("e2e_charts_per_sec_per_chip", "e2e_extract_s", "e2e_qa_s",
+            "qa_build_s", "qa_eval_s", "qa_questions"),
+    "detector_800px": ("detector_train_imgs_per_sec_per_chip_800px",
+                       "detector_train_step_tflop_800px",
+                       "detector_mfu_pct_800px"),
+    "detector": ("detector_train_imgs_per_sec_per_chip",),
+    "detector_800px_bf16": (
+        "detector_train_imgs_per_sec_per_chip_800px_bf16",),
+    "detector_800px_fastnms": (
+        "detector_train_imgs_per_sec_per_chip_800px_fastnms",),
+}
+# the kernels each bench section launches (the input pipeline runs none)
+BENCH_KERNELS = {"train": ("k1", "k2"), "eval": ("k1",),
+                 "fast_scorer": ("k1",), "fast_topk8": ("k1",),
+                 "input_pipeline": (), "roofline": ("k1", "k2"),
+                 "e2e": ("k1",), "detector_800px": ("k3",),
+                 "detector": ("k3",), "detector_800px_bf16": ("k3",),
+                 "detector_800px_fastnms": ("k3",)}
 EVAL_IMAGES = 16              # synthetic test (and train) figures x 4
                               # questions of the eval phase
 FS_STEPS = 40                 # fast-scorer head steps
@@ -325,25 +389,27 @@ def kernel_row(kernel, name, dtype, err, times, flops, nbytes):
     return row
 
 
-def device_ms(fn, name=None, iters=20, warmup=3):
-    """Mean device time of one call, ms: the time of its CUDA kernels (those
-    whose name holds ``name``, if given) under torch.profiler over ``iters``
-    calls after ``warmup``. The host's time to launch them is left out:
-    through Python wrappers it exceeds the smaller kernels' own time."""
+def device_ms(fn, name=None, iters=20, warmup=3, tries=3):
+    """Mean device time of one call on the current card, ms:
+    ``crct_tpu_torch/utils/profiling.py``'s ``device_ms`` of this script's
+    checkout, loaded from its file (``--tree`` may name an older checkout,
+    which lacks it)."""
+    import importlib.util
+
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (name is None or name in e.key))
-    return us / 1e3 / iters
+    global _DEVICE_MS
+    if _DEVICE_MS is None:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_device_ms", os.path.join(
+                HERE, "crct_tpu_torch", "utils", "profiling.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _DEVICE_MS = module.device_ms
+    return _DEVICE_MS(fn, torch.device("cuda", torch.cuda.current_device()),
+                      iters, warmup, tries, name)
+
+
+_DEVICE_MS = None
 
 
 def fwd_ms(attention, q, k, v, mask):
@@ -2423,7 +2489,7 @@ def detector(card, attention, roi_align, rk, failures):
         step_ms.append((time.perf_counter() - t) * 1e3)
         launches.append(rk.launch_count() - k3)
     wall = time.perf_counter() - t0
-    counts = {name: rk.LAUNCHES[(P, C_FPN)]
+    counts = {name: rk.LAUNCHES[("float32", P, C_FPN)]
               for name, (P, _) in ROI_SHAPES.items()}
     other = attention.launch_count() + attention.bwd_launch_count()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3666,6 +3732,8 @@ def cards_phase(card, batch, params, failures):
         rank_group(batch, params, os.path.join(root, "nccl"), failures, card,
                    n, "nccl")
         serve_over_cards(os.path.join(root, "serve"), failures, card, n)
+    # the bench's headline and QA sections over every card, one rank a card
+    bench_phase(card, failures, ("--no-e2e", "--no-detector"), nproc=n)
 
 
 def serve_over_cards(root, failures, card, n):
@@ -3893,7 +3961,7 @@ def child_ranks(tree, root, rank, world, port, backend):
         trainer = DetectorTrainer(num_classes=DET_CLASSES, with_mask=True,
                                   depth=50, seed=SEED, batch_size=world,
                                   device=device)
-        before = {n: rk.LAUNCHES[(P, C_FPN)]
+        before = {n: rk.LAUNCHES[("float32", P, C_FPN)]
                   for n, (P, _) in ROI_SHAPES.items()}
         with mock.patch.object(boxes, "_draw_uniform", draw), \
                 mock.patch.object(F, "relu", relu), \
@@ -3902,7 +3970,7 @@ def child_ranks(tree, root, rank, world, port, backend):
                                   train_losses):
             losses = trainer.run_step(det)
         torch.cuda.synchronize()
-        k3 = {n: rk.LAUNCHES[(P, C_FPN)] - before[n]
+        k3 = {n: rk.LAUNCHES[("float32", P, C_FPN)] - before[n]
               for n, (P, _) in ROI_SHAPES.items()}
         per_image = None
         if record:
@@ -4299,9 +4367,9 @@ def weights_phase(card, attention, failures):
     return counts
 
 
-def proof_shapes(attention, rk):
-    """Patches of the three kernels' launch functions that record what the
-    proof gives them: (dtype, B, H, Lq, Lk, D) of each K1 and K2 launch,
+def record_shapes(attention, rk):
+    """Patches of the three kernels' launch functions that record what a
+    path gives them: (dtype, B, H, Lq, Lk, D) of each K1 and K2 launch,
     and the inputs of K3's first call at each (cotangent dtype, P, C,
     pyramid, map dtype, sampling ratio), copied. They call through, so
     each launch is counted as before."""
@@ -4333,23 +4401,25 @@ def proof_shapes(attention, rk):
     return seen, patches
 
 
-def check_proof_shapes(attention, rk, seen, card, failures):
+def check_shapes(attention, rk, seen, phase, card, failures,
+                 need=("k1", "k2", "k3")):
     """K1 and K2 against their plain versions at each (dtype, B, H, Lq, Lk,
-    D) the proof launched them at, on random inputs as the kernel phase
-    draws them (both masks, dropout 0 and 0.1) and with its limits; K3
-    against its plain version on the geometry of the proof's first call at
-    each of its shapes, with that call's cotangent and with a unit-normal
-    one, with the kernel phase's limits."""
+    D) ``phase``'s path launched them at (``seen``, from record_shapes), on
+    random inputs as the kernel phase draws them (both masks, dropout 0
+    and 0.1) and with its limits; K3 against its plain version on the
+    geometry of the path's first call at each of its shapes, with that
+    call's cotangent and with a unit-normal one, with the kernel phase's
+    limits. A kernel of ``need`` with no shape to check fails too."""
     import torch
     for kname, seen_k, errors in (("K1", seen["k1"], k1_errors),
                                   ("K2", seen["k2"], k2_errors)):
         for dname, rows, H, Lq, Lk, D in sorted(seen_k):
             g = torch.Generator(device="cuda").manual_seed(SEED)
-            name = f"proof {kname} (B, H, Lq, Lk, D) = {(rows, H, Lq, Lk, D)}"
+            name = f"{phase} {kname} (B, H, Lq, Lk, D) = {(rows, H, Lq, Lk, D)}"
             err = errors(attention, name, rows, (H, Lq, Lk, D),
                          getattr(torch, dname), g, failures)
             err = err[0] if kname == "K1" else err
-            say("proof", f"{name} {dname}: max abs err {err:.3g} against "
+            say(phase, f"{name} {dname}: max abs err {err:.3g} against "
                          f"the plain version (tol {K_TOL[dname]}"
                          f"{'' if kname == 'K1' else ' of max(1, |grad|)'}; "
                          f"both masks, dropout 0 and 0.1; {card})")
@@ -4357,7 +4427,7 @@ def check_proof_shapes(attention, rk, seen, card, failures):
     for (gname, P, C, shapes, dname, S), (g_path, geo) in sorted(
             seen["k3"].items(), key=lambda kv: kv[0][:2]):
         dtype = getattr(torch, dname)
-        what = (f"proof K3 N {g_path.shape[0]}, P {P}, C {C}, pyramid "
+        what = (f"{phase} K3 N {g_path.shape[0]}, P {P}, C {C}, pyramid "
                 f"{shapes}, {gname} into {dname}")
         # the path's cotangent is small (a loss over many rois), which makes
         # max(1, |grad|) loose: a unit-normal one on the same geometry too
@@ -4373,12 +4443,12 @@ def check_proof_shapes(attention, rk, seen, card, failures):
             if not ok:
                 failures.append(f"{what}, {cot}: max abs err {err} "
                                 f"({limit})")
-            say("proof", f"{what}, the proof's geometry and {cot}: max abs "
+            say(phase, f"{what}, the path's geometry and {cot}: max abs "
                          f"err {err:.3g} against the plain version, largest "
                          f"|grad| {top:.3g} ({limit}; {card})")
-    for kname in ("k1", "k2", "k3"):
+    for kname in need:
         if not seen[kname]:
-            failures.append(f"proof: no {kname.upper()} shape to check")
+            failures.append(f"{phase}: no {kname.upper()} shape to check")
 
 
 def proof_phase(card, failures):
@@ -4398,7 +4468,7 @@ def proof_phase(card, failures):
 
     before = (dict(attention.LAUNCHES), dict(attention.BWD_LAUNCHES),
               dict(roi_align_kernel.LAUNCHES))
-    seen, patches = proof_shapes(attention, roi_align_kernel)
+    seen, patches = record_shapes(attention, roi_align_kernel)
     with tempfile.TemporaryDirectory(prefix="crct_proof_") as root:
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -4413,7 +4483,7 @@ def proof_phase(card, failures):
             return None, {"k1": {}, "k2": {}, "k3": {}}
         seconds = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    # launches by kernel and key ((dtype, H, Lq, Lk, D); K3 (P, C))
+    # launches by kernel and key ((dtype, H, Lq, Lk, D); K3 (dtype, P, C))
     launches = {name: {k: c - b.get(k, 0) for k, c in now.items()
                        if c > b.get(k, 0)}
                 for name, now, b in zip(
@@ -4439,8 +4509,261 @@ def proof_phase(card, failures):
                  f"{res['tolerance_accuracy']}) beside chance {res['chance']}"
                  f" on {res['questions']} questions; not gated at --fast "
                  f"sizes ({card})")
-    check_proof_shapes(attention, roi_align_kernel, seen, card, failures)
+    check_shapes(attention, roi_align_kernel, seen, "proof", card, failures)
     return res, launches
+
+
+def numbers(obj, path=""):
+    """(path, value) of every number in a parsed JSON line, the launch
+    counts (checked by kernel) apart."""
+    if isinstance(obj, bool):
+        return
+    if isinstance(obj, (int, float)):
+        yield path, obj
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            if "launches" not in k:
+                yield from numbers(v, f"{path}.{k}" if path else k)
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from numbers(v, f"{path}[{i}]")
+
+
+def check_numbers(what, line, failures, may_be_zero=()):
+    """Every number of the line finite and above 0 (but under the paths
+    that start with one of ``may_be_zero``: finite), every MFU at most
+    100 %."""
+    for path, v in numbers(line):
+        if not math.isfinite(v):
+            failures.append(f"{what}: {path} = {v}")
+        elif v <= 0 and not path.startswith(tuple(may_be_zero)):
+            failures.append(f"{what}: {path} = {v}, not above 0")
+        elif "mfu" in path and v > 100:
+            failures.append(f"{what}: {path} = {v} % above the peak")
+
+
+def save_line(name, line):
+    """A JSON line too long for the end of the output, in chiprun_out/."""
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"chip_smoke_{name}.json"), "w") as f:
+        json.dump(line, f, indent=1)
+
+
+def bench_phase(card, failures, argv=BENCH_ARGV, nproc=1):
+    """Phase 13: the bench's main with ``argv`` in a child process
+    (``child_bench``; under torchrun over ``nproc`` cards when above 1),
+    which also holds the kernels against their plain versions at every
+    shape the bench gave them. Fails where a child exits non-zero or
+    reports a failure, where the bench prints no line, a key of bench.py's
+    run with those flags is missing, a number is not finite and above 0,
+    an MFU passes 100 %, a section did not launch a kernel it runs, or the
+    line names another card or world. Returns the line's launches by
+    section."""
+    import torch
+    with tempfile.TemporaryDirectory(prefix="crct_bench_") as root:
+        report = os.path.join(root, "rank{rank}.json")
+        cmd = [os.path.join(HERE, "chip_smoke.py"), "--child", "bench",
+               HERE, report, "--", *argv]
+        if nproc > 1:
+            cmd = ["-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", str(nproc), *cmd]
+        t0 = time.perf_counter()
+        rc, out = spawn([sys.executable, *cmd], timeout=900)
+        seconds = time.perf_counter() - t0
+        reports = []
+        for rank in range(nproc):
+            try:
+                with open(report.format(rank=rank)) as f:
+                    reports.append(json.load(f))
+            except OSError:
+                reports.append({"failures": [f"rank {rank} wrote no report"]})
+    for ln in out.splitlines():          # the children's shape checks
+        if ln.startswith("[bench] "):
+            print(ln, flush=True)
+    for rank, rep in enumerate(reports):
+        failures += [f"bench rank {rank}: {f}" for f in rep["failures"]]
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"metric"')]
+    if rc != 0 or len(lines) != 1:
+        failures.append(f"bench {' '.join(argv)}: exit {rc}, {len(lines)} "
+                        f"result lines; last lines {out.splitlines()[-8:]}")
+        return {}
+    line = json.loads(lines[0])
+    aux = line["aux"]
+    skip = set()
+    if "--no-e2e" in argv:
+        skip.add("e2e")
+    if "--no-detector" in argv:
+        skip.add("detector_800px")
+    if "--all" not in argv:
+        skip.update(("detector", "detector_800px_bf16",
+                     "detector_800px_fastnms"))
+    if "--roofline" not in argv:
+        skip.add("roofline")
+    sections = [s for s in BENCH_KEYS if s not in skip]
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline")
+               if k not in line]
+    missing += [k for s in sections for k in BENCH_KEYS[s] if k not in aux]
+    missing += [f"launches.{s}" for s in sections
+                if s not in aux.get("launches", {})]
+    if missing:
+        failures.append(f"bench: missing keys {missing}")
+        return {}
+    what = "bench" + (f" over {nproc} cards" if nproc > 1 else "")
+    check_numbers(what, line, failures)
+    for s in sections:
+        for k in BENCH_KERNELS[s]:
+            if aux["launches"][s][k] < 1:
+                failures.append(f"{what}: no {k.upper()} launch in {s}")
+    named = f"{aux['device_name']}, {aux.get('power_limit_w', 0):.2f} W"
+    if named != card or aux["n_chips"] != nproc:
+        failures.append(f"{what}: names {named} x {aux['n_chips']}, not "
+                        f"{card} x {nproc}")
+    if aux["attention_path"] != "cuda_k1_k2":
+        failures.append(f"{what}: attention_path {aux['attention_path']}")
+    save_line("bench" + (f"_{nproc}cards" if nproc > 1 else ""), line)
+    head = {k: aux[k] for s in sections for k in BENCH_KEYS[s][:2]
+            if not isinstance(aux[k], str)}
+    say("bench", f"crct_tpu_torch.bench {' '.join(argv)} in {seconds:.1f} s: "
+                 f"{line['value']:.2f} QA pairs/s/card (vs_baseline "
+                 f"{line['vs_baseline']:.3f}); "
+                 + ", ".join(f"{k} {v:.4g}" for k, v in head.items())
+                 + "; launches " + ", ".join(
+                     f"{s} " + "/".join(str(aux["launches"][s][k])
+                                        for k in ("k1", "k2", "k3"))
+                     for s in sections)
+                 + f"; nvcc {aux.get('nvcc_build_s', 0):.1f} s ({card})")
+    torch.cuda.empty_cache()
+    return {s: aux["launches"][s]["shapes"] for s in sections}
+
+
+# the tools phase: (tool, argv at small sizes, paths whose numbers may be 0
+# or below: rates of a random model's answers, knockout deltas, differences)
+TOOL_RUNS = (
+    ("serve_bench", ("--requests", "32", "--threads", "8", "--sequential",
+                     "4"), ("fast_topk",)),
+    ("eval_overhead_profile", ("--questions", "64", "--passes", "1"), ()),
+    ("eval_chunk_sweep", ("--questions", "64", "--chunks", "240,960",
+                          "--repeats", "1"), ()),
+    ("attention_shape_bench", ("--steps", "1", "--repeats", "2"), ()),
+    ("detector_step_decomp", ("--steps", "2", "--repeats", "1", "--warmup",
+                              "1"), ("deltas_ms",)),
+    ("roi_backward_compare", ("--iters", "5"), ("max_abs_diff",)),
+    ("opt_variant_bench", ("--opt-bf16-m", "--steps", "3", "--repeats", "2"),
+     ()),
+    ("opt_variant_bench", ("--dropout0", "--steps", "3", "--repeats", "2"),
+     ()),
+    ("shortlist_miss_rate", ("--backbone-steps", "50", "--head-steps",
+                             "20"), ("k", "full_protocol_accuracy")),
+)
+
+
+def check_tool(name, res, launched, failures):
+    """What each tool's line must show beyond finite, positive numbers."""
+    k = launched.record
+    need = {"serve_bench": ("k1",), "eval_overhead_profile": ("k1",),
+            "eval_chunk_sweep": ("k1",), "attention_shape_bench": ("k1",
+                                                                    "k2"),
+            "detector_step_decomp": ("k3",), "roi_backward_compare": ("k3",),
+            "opt_variant_bench": ("k1", "k2"),
+            "shortlist_miss_rate": ("k1", "k2")}[name]
+    bad = [kk for kk in need if k[kk] < 1]
+    if name == "serve_bench":
+        if res["errors"] or res["requests"] != 32:
+            bad.append(f"{res['requests']} answered, errors {res['errors']}")
+        if res["mean_coalesced_batch"] <= 1:
+            bad.append(f"no coalescing ({res['mean_coalesced_batch']})")
+    elif name == "eval_chunk_sweep":
+        bad += [f"chunk {r['chunk']}: no K1" for r in res["table"]
+                if r["k1_launches"] < 1]
+    elif name == "attention_shape_bench":
+        for shape, r in res["shapes"].items():
+            if r["kernels_launches"]["k1"] < 1:
+                bad.append(f"{shape}: no K1 on the kernels' path")
+            if shape.startswith("train") and r["kernels_launches"]["k2"] < 1:
+                bad.append(f"{shape}: no K2 on the kernels' path")
+            for path in ("plain", "sdpa"):
+                if any(r[f"{path}_launches"].values()):
+                    bad.append(f"{shape}: kernels on the {path} path")
+    elif name == "detector_step_decomp":
+        if res["k3_launches"]["stub_roialign"]:
+            bad.append("K3 launched with RoIAlign stubbed")
+    elif name == "roi_backward_compare":
+        tol = 2e-5 * max(1.0, res["max_abs_grad"])
+        if res["max_abs_diff"]["k3_vs_scatter"] > tol:
+            bad.append(f"K3 {res['max_abs_diff']['k3_vs_scatter']:.3g} from "
+                       f"the scatter-add gradient (limit {tol:.3g})")
+    if bad:
+        failures.append(f"tools {name}: {bad}")
+
+
+def tools_phase(card, failures):
+    """Phase 14: the eight tools of crct_tpu_torch/tools/ (the full
+    pipeline proof is phase 12) at small sizes, each in this process
+    through its main(); its printed line checked as the bench's, and by
+    what it measures. The detector knockouts must leave mask_rcnn's and
+    box_ops' namespaces as they found them. Then K1, K2 and K3 against
+    their plain versions at every shape the tools gave them. Returns each
+    run's launches by kernel, dtype and shape."""
+    from contextlib import ExitStack
+
+    import torch
+
+    from crct_tpu_torch.detector import boxes, mask_rcnn
+    from crct_tpu_torch.ops import attention, roi_align_kernel
+    names = (dict(vars(mask_rcnn)), dict(vars(boxes)))
+    shapes = {}
+    seen, patches = record_shapes(attention, roi_align_kernel)
+    with ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        tool_runs(card, failures, shapes)
+    if (dict(vars(mask_rcnn)), dict(vars(boxes))) != names:
+        failures.append("tools: detector_step_decomp left a stub in "
+                        "mask_rcnn's or box_ops' namespace")
+    check_shapes(attention, roi_align_kernel, seen, "tools", card, failures)
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def tool_runs(card, failures, shapes):
+    """Each of TOOL_RUNS through its main(), its line checked; its launches
+    by kernel, dtype and shape into ``shapes``."""
+    import importlib
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from crct_tpu_torch.bench import Launches
+    for name, argv, may_be_zero in TOOL_RUNS:
+        tool = importlib.import_module(f"crct_tpu_torch.tools.{name}")
+        label = " ".join((name,) + argv[:1]) if name == "opt_variant_bench" \
+            else name
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with Launches() as launched, redirect_stdout(buf):
+                tool.main(list(argv))
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        except Exception as exc:        # the tool failed: its last lines
+            failures.append(f"tools {label}: {exc!r}; last lines "
+                            f"{buf.getvalue().splitlines()[-5:]}")
+            continue
+        finally:
+            torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t0
+        check_numbers(f"tools {label}", line, failures, may_be_zero)
+        check_tool(name, line, launched, failures)
+        save_line(f"tool_{label.replace(' --', '_').replace('-', '_')}",
+                  line)
+        shapes[label] = launched.record["shapes"]
+        say("tools", f"{name} {' '.join(argv)} in {seconds:.1f} s: K1/K2/K3 "
+                     f"{launched.record['k1']}/{launched.record['k2']}/"
+                     f"{launched.record['k3']}; "
+                     + json.dumps({k: v for k, v in line.items()
+                                   if not isinstance(v, (dict, list))})[:600]
+                     + f" ({card})")
 
 
 def kernel_phase(card, attention, build, roi_align, rk, failures):
@@ -4569,6 +4892,11 @@ def main():
                   f"{torch.backends.cudnn.allow_tf32}); the port of {tree}")
 
     t0 = time.perf_counter()
+
+    def mark(phase):
+        say("time", f"{phase} starts {time.perf_counter() - t0:.1f} s after "
+                    f"the build started")
+
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
         list(pool.map(build.build, KERNELS))
     for kname in KERNELS:
@@ -4593,17 +4921,22 @@ def main():
         print(json.dumps({"phase": "times", "tree": tree, "card": card,
                           "ms": ms, "k3_ms": k3}), flush=True)
     if "kernel" in phases:
+        mark("kernel")
         fwd_rows, bwd_rows, roi_rows = kernel_phase(card, attention, build,
                                                     roi_align, rk, failures)
     if "serve" in phases:
+        mark("serve")
         launches = serve(card, attention, failures)
     if "eval" in phases:
+        mark("eval")
         eval_counts = eval_phase(card, attention, failures)
     batch = None
     if "train" in phases:
+        mark("train")
         train_counts, in_train_k1, batch, params = train(card, attention,
                                                          failures)
     if "cross" in phases:
+        mark("cross")
         if batch is None:
             batch, params = train_batch()
         readings = cross_check(attention, batch, params, failures,
@@ -4612,23 +4945,36 @@ def main():
             print(json.dumps({"phase": "cross", "tree": tree, "card": card,
                               "readings": readings}), flush=True)
     if "detector" in phases:
+        mark("detector")
         roi_counts = detector(card, attention, roi_align, rk, failures)
     if "ingest" in phases:
+        mark("ingest")
         ingest_launches = ingest_phase(card, attention, failures)
     if "parallel" in phases or "cards" in phases:
         if batch is None:
             batch, params = train_batch()
     if "parallel" in phases:
+        mark("parallel")
         par = parallel_phase(card, attention, batch, params, failures)
     if "cards" in phases:
+        mark("cards")
         cards_phase(card, batch, params, failures)
     if "weights" in phases:
+        mark("weights")
         weights = weights_phase(card, attention, failures)
     if "proof" in phases:
+        mark("proof")
         proof, proof_launches = proof_phase(card, failures)
         if not whole and proof is not None:
             print(json.dumps({"phase": "proof", "card": card, **proof}),
                   flush=True)
+    if "bench" in phases:
+        mark("bench")
+        bench_shapes = bench_phase(card, failures)
+    if "tools" in phases:
+        mark("tools")
+        tool_shapes = tools_phase(card, failures)
+    mark("the end")
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -4674,8 +5020,24 @@ def main():
         row["proof_launches"] = sum(
             c for k, c in proof_launches["k2"].items()
             if k[0] == dname and k[2:4] == SHAPES[kname][1:3])
+    # the bench's sections and the tools' runs, by kernel, dtype and shape
+    # (Launches' keys)
+    extra = {f"bench {s}": c for s, c in bench_shapes.items()}
+    extra.update({f"tools {t}": c for t, c in tool_shapes.items()})
+
+    def add_paths(row, key):
+        more = {p: c[key] for p, c in extra.items() if c.get(key)}
+        row["path"] = ", ".join([row["path"]] * (row["path"] != "none")
+                                + list(more)) or "none"
+        row["launches"] += sum(more.values())
+
+    for tag, rows in (("K1", fwd_rows), ("K2", bwd_rows)):
+        for (kname, dname), row in rows.items():
+            add_paths(row, f"{tag} {dname} "
+                           + "x".join(map(str, SHAPES[kname])))
     kernels = list(fwd_rows.values()) + list(bwd_rows.values())
-    # the detector trains in fp32: no main path runs K3 in bf16
+    # the detector phase trains in fp32 (and so do the gloo ranks and the
+    # proof); the bench's and the tools' K3 launches by dtype
     for row in roi_rows:
         shape = row["name"][len("roi_align_bwd["):].split(",")[0].rstrip("]")
         fp32 = row["dtype"] == "float32"
@@ -4683,8 +5045,10 @@ def main():
         row["launches"] = (roi_counts[shape] + par["gloo detector"].get(
             shape, 0)) if fp32 else 0
         row["proof_launches"] = proof_launches["k3"].get(
-            (ROI_SHAPES[shape][0], C_FPN), 0) if fp32 else 0
+            (row["dtype"], ROI_SHAPES[shape][0], C_FPN), 0)
+        add_paths(row, f"K3 {row['dtype']} P{ROI_SHAPES[shape][0]} C{C_FPN}")
     kernels += roi_rows
+    save_line("kernels", {"card": card, "kernels": kernels})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -4692,9 +5056,42 @@ def main():
     return 0
 
 
+def child_bench(tree, report, argv):
+    """The bench phase's child (one a card under torchrun): the bench's
+    main with ``argv``, which prints its line as ``python -m
+    crct_tpu_torch.bench`` does, under record_shapes' patches; then K1, K2
+    and K3 held against their plain versions at every shape this rank's
+    bench gave them (check_shapes). Its failures go to ``report`` (its
+    ``{rank}`` the rank's)."""
+    sys.path.insert(0, tree)
+    from contextlib import ExitStack
+
+    from crct_tpu_torch import bench
+    from crct_tpu_torch.ops import attention, roi_align_kernel
+
+    seen, patches = record_shapes(attention, roi_align_kernel)
+    with ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        bench.main(argv)
+    failures = []
+    # K3 runs in the detector sections alone
+    need = ("k1", "k2") if "--no-detector" in argv and "--all" not in argv \
+        else ("k1", "k2", "k3")
+    check_shapes(attention, roi_align_kernel, seen, "bench", device_line(),
+                 failures, need)
+    with open(report.format(rank=os.environ.get("RANK", "0")), "w") as f:
+        json.dump({"failures": failures}, f)
+    return 0
+
+
 def child_main(args):
-    """The parallel phase's children: ``ddp_train TREE OUT_JSON -- ARGV``
-    (started by torchrun) or ``ranks TREE ROOT RANK WORLD PORT BACKEND``."""
+    """The children: the bench phase's ``bench TREE REPORT -- ARGV`` (under
+    torchrun over several cards), the parallel phase's ``ddp_train TREE
+    OUT_JSON -- ARGV`` (started by torchrun) or ``ranks TREE ROOT RANK
+    WORLD PORT BACKEND``."""
+    if args[0] == "bench":
+        return child_bench(args[1], args[2], args[args.index("--") + 1:])
     if args[0] == "ddp_train":
         return child_ddp_train(args[1], args[2], args[args.index("--") + 1:])
     return child_ranks(args[1], args[2], int(args[3]), int(args[4]), args[5],

@@ -37,7 +37,7 @@ _GEOMETRY = {"lvl": (torch.int64, lambda n, ps: (n,)),
                 for k in ("wy0", "wy1", "wx0", "wx1")}}
 MAX_LEVELS = 8          # levels of the kernel's launch
 
-# kernel launches, keyed by (P, C); bumped only where the kernel is
+# kernel launches, keyed by (cotangent dtype, P, C); bumped only where the kernel is
 # launched, never by the plain version
 _COUNT_LOCK = threading.Lock()
 LAUNCHES: Counter = Counter()
@@ -180,5 +180,5 @@ def mlra_backward_kernel(grad_pooled: torch.Tensor,
         raise RuntimeError(f"roi_align_bwd kernel launch failed: CUDA error "
                            f"{err} at N {N}, P {P}, S {S}, C {C}")
     with _COUNT_LOCK:
-        LAUNCHES[(P, C)] += 1
+        LAUNCHES[(str(g.dtype)[6:], P, C)] += 1
     return _split_levels(flat, shapes, dtype)

@@ -137,9 +137,10 @@ def maybe_initialize_distributed(params: Optional[Dict[str, Any]] = None
         p["cuda_num"] = local
     init_distributed(int(world), rank_id, init_method=url, device=device)
     keys = [k for k in ("seed", "save_path") if k in p]
-    values = [p[k] for k in keys]
-    dist.broadcast_object_list(values, src=0, group=_HOST_GROUP)
-    p.update(zip(keys, values))
+    if keys:
+        values = [p[k] for k in keys]
+        dist.broadcast_object_list(values, src=0, group=_HOST_GROUP)
+        p.update(zip(keys, values))
     return True
 
 

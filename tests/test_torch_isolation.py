@@ -38,7 +38,13 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         assert "crct_tpu_torch.serve" in names, names
         assert "crct_tpu_torch.parallel.mesh" in names, names
         for name in ("cli.convert_checkpoint", "cli.import_bert",
-                     "tools.full_pipeline_proof"):
+                     "tools.full_pipeline_proof", "bench",
+                     "tools.serve_bench", "tools.eval_overhead_profile",
+                     "tools.eval_chunk_sweep", "tools.attention_shape_bench",
+                     "tools.detector_step_decomp",
+                     "tools.roi_backward_compare",
+                     "tools.opt_variant_bench",
+                     "tools.shortlist_miss_rate", "utils.profiling"):
             assert "crct_tpu_torch." + name in names, names
         print(len(names))
     """)

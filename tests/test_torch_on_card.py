@@ -488,7 +488,7 @@ def test_detector_train_step_goes_through_k3_on_card(card, monkeypatch):
 
     rk.reset_launch_count()
     losses, grads = step()
-    assert rk.LAUNCHES == {(7, 256): 2, (14, 256): 2}
+    assert rk.LAUNCHES == {("float32", 7, 256): 2, ("float32", 14, 256): 2}
     monkeypatch.setattr(rk, "mlra_backward_kernel",
                         rk.mlra_backward_reference)
     want_losses, want = step()
@@ -595,3 +595,32 @@ def test_evaluate_goes_through_the_kernel_on_card(card, tmp_path):
             if len(top) < 2 or top[0] - top[1] > 1e-4:
                 assert np.argmax(v[s:e]) == np.argmax(w[s:e])
     assert len(recs) == len(want_recs) == len(ds)
+
+
+def test_retrieval_recipe_through_the_kernels_as_through_the_plain_attention(
+        card, tmp_path):
+    """The shortlist tool's backbone (the retrieval recipe of
+    tests/test_torch_recipe.py) from the tool's initial weights, 600 steps
+    through K1 and K2 and 600 through the plain attention on the card: the
+    first 40 steps' losses within 2e-3 of each other, the CPU test's limit
+    of the port against the JAX Trainer. Each run's mean loss over its last
+    50 steps is printed (ln 2 = 0.693: the plateau); the recipe amplifies
+    rounding, so the two need not agree there."""
+    from crct_tpu_torch.tools import shortlist_miss_rate as tool
+    params, _, batches = tool.recipe(str(tmp_path))
+    runs = {}
+    for path, fn in (("kernels", attention.fused_attention),
+                     ("plain", attention.plain_attention)):
+        before = attention.launch_count() + attention.bwd_launch_count()
+        with mock.patch.object(layers, "fused_attention", fn):
+            _, losses = tool.train_backbone(params, batches, card, 600)
+        runs[path] = (np.asarray(losses), attention.launch_count()
+                      + attention.bwd_launch_count() - before)
+    (got, launched), (want, plain_launched) = runs["kernels"], runs["plain"]
+    gap = np.abs(got - want)
+    print(f"retrieval recipe on {torch.cuda.get_device_name(card)}: first "
+          f"40 steps' largest loss gap {gap[:40].max():.3g}; mean loss of "
+          f"the last 50 steps: K1/K2 {got[-50:].mean():.5f}, plain "
+          f"{want[-50:].mean():.5f}")
+    assert launched > 0 and plain_launched == 0
+    assert gap[:40].max() <= 2e-3, gap[:40]

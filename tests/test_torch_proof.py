@@ -73,7 +73,7 @@ def test_proof_stage_counts_each_kernels_launches(capsys):
         with _Stage(stages, "train"):
             attention.LAUNCHES[("float32", 4, 8, 8, 16)] += 2
             attention.BWD_LAUNCHES[("float32", 4, 8, 8, 16)] += 3
-            roi_align_kernel.LAUNCHES[(7, 256)] += 1
+            roi_align_kernel.LAUNCHES[("float32", 7, 256)] += 1
     finally:
         attention.reset_launch_count()
         roi_align_kernel.reset_launch_count()
