@@ -26,14 +26,19 @@ Phases, one line each (any failure exits non-zero):
   3. kernel  - the forward kernel (K1) against its plain PyTorch version at
                the four flagship attention shapes (B = 240 rows), output and
                log-sum-exp, and the backward kernel (K2) against its plain
-               version at the same shapes at the train batch (B = 80): fp32
-               and bf16, key-only and full masks, dropout 0 and 0.1 with one
-               seed, and <out, C> = <v, dv> under dropout; K2's shared
-               memory, warps and resident blocks; in each dtype, each
-               kernel's time, the plain version's, one PyTorch call's (SDPA,
-               a yardstick the port never calls) and the least time the card
-               could take (for fp32 also at the 3xTF32 rate the kernels
-               run); in bf16, how K1's output is rounded against fp64;
+               version at the same shapes at the train batch (B = 80): fp32,
+               and bf16 in both attention modes (the JAX default path's
+               rounded P, the -pallas path's fp32 P), key-only and full
+               masks, dropout 0 and 0.1 with one seed, and <out, C> =
+               <v, dv> under dropout; K2's shared memory, warps and resident
+               blocks; for each dtype and mode, each kernel's time, the
+               plain version's, one PyTorch call's (SDPA, a yardstick the
+               port never calls) and the least time the card could take
+               (for fp32 also at the 3xTF32 rate the kernels run); in bf16
+               -pallas mode, how the results are rounded against fp64
+               (ROUNDING), in bf16 default mode, the share of elements that
+               differ from the plain version's (SHARE), which the -pallas
+               mode's results must miss;
   4. serve   - the flagship PlotQA model (config/vilbert.json, random
                weights from a seed, fp32) behind make_server on the card:
                concurrent /v1/answer requests and one /v1/answers batch over
@@ -64,10 +69,11 @@ Phases, one line each (any failure exits non-zero):
   7. cross   - one train step from the same weights with dropout on,
                through K1/K2 and through the plain forward and backward
                from the same generator state, in fp32 (loss, every gradient
-               and the parameters after the AdamW update) and in bf16 (loss
-               and the worst relative L2 gradient difference apart from key
-               biases, held at limits set from readings); in bf16 also a
-               witness step (plain forward, kernels' backward) and three
+               and the parameters after the AdamW update) and in bf16, in
+               the default attention mode and with -pallas (loss and the
+               worst relative L2 gradient difference apart from key
+               biases, held at limits set from readings); with -pallas also
+               a witness step (plain forward, kernels' backward) and three
                control steps (P and dS rounded to bf16, read; the
                backward's dropout mask from another seed, and another
                dropout draw, both of which the limits must catch);
@@ -168,7 +174,8 @@ Phases, one line each (any failure exits non-zero):
                scatter-add gradient; the knockouts leave mask_rcnn's and
                box_ops' namespaces as they were).
 The line before the last holds the kernels' numbers as JSON, a row for each
-kernel, shape and dtype (with "proof_launches": the kernel's launches in
+kernel, shape, dtype and, in bf16, attention mode (fp32 has one kernel
+instance for both modes) (with "proof_launches": the kernel's launches in
 the proof, for K1 and K2 those of the tiny model's attention of the same
 kind, Lq and Lk, at its own heads and head width, for K3 those of the
 same P on its 320 x 320 pyramid, apart from "launches"; "launches" and
@@ -218,11 +225,24 @@ LIMIT_NAMES = {"loss_rel": "loss, relative",
                "grad_all": "worst gradient, max |diff| / max |plain|",
                "grad_l2": "worst gradient apart from key biases, relative L2",
                "param": "parameters after AdamW, max |diff|"}
-# K1's output and K2's gradients in bf16 may be off an fp64 computation, on
-# average, by at most this times the plain versions' error: between the
-# kernels' readings (1.0001 of it) and those of a control that rounds P and
-# dS to bf16 (1.56-1.59); PERF.md, section 6
+# K1's output and K2's gradients in bf16 -pallas mode may be off an fp64
+# computation, on average, by at most this times the plain versions' error:
+# between the kernels' readings (1.0001 of it) and those of a control that
+# rounds P and dS to bf16 (1.56-1.59); PERF.md, section 6
 ROUNDING = 1.25
+# the attention modes (crct_tpu_torch/ops/attention.py): the JAX default
+# path's, P rounded to bf16 (every path's unless -pallas), and the -pallas
+# path's; fp32 runs one kernel instance for both
+DEFAULT, PALLAS = "round_probs", "pallas"
+# the (dtype, mode) rows of the kernel phase
+VARIANTS = (("float32", DEFAULT), ("bfloat16", DEFAULT), ("bfloat16", PALLAS))
+# in bf16 default mode, the largest share of K1's output elements and of
+# K2's gradient elements that may differ from the plain version's at all:
+# between the kernels' readings at the flagship shapes (K1 1.4e-4 to
+# 3.4e-4, K2 1.2e-3 to 1.8e-3) and those of the -pallas mode's results held
+# to the same plain version, a control that must miss it (K1 0.407-0.415,
+# K2 0.342-0.376); PERF.md, section 6
+SHARE = {"K1": 0.01, "K2": 0.02}
 # the bf16 cross-check's controls (cross_attentions): name -> (P and dS
 # rounded to bf16, the forward's and the backward's dropout seed shift)
 CONTROLS = {"control_p": (True, 0, 0), "control_mask": (False, 0, 1),
@@ -366,21 +386,22 @@ def bound(flops, nbytes, dtype, rate=None):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_row(kernel, name, dtype, err, times, flops, nbytes):
+def kernel_row(kernel, name, dtype, mode, err, times, flops, nbytes):
     """One row of the kernels' JSON line (launches are filled in later).
-    fp32 rows also get the bound at the rate of fp32-accurate products on
-    the tensor cores, 3xTF32 (a third of the TF32 rate), as the kernels run
-    them."""
+    fp32 rows, one kernel instance for both attention modes, also get the
+    bound at the rate of fp32-accurate products on the tensor cores, 3xTF32
+    (a third of the TF32 rate), as the kernels run them."""
     dname = str(dtype)[6:]
     bound_ms, bound_by = bound(flops, nbytes, dname)
     row = {
         "name": f"attention_{kernel}[{name}"
-                + ("" if dname == "float32" else f",{dname}") + "]",
+                + ("" if dname == "float32" else f",{dname},{mode}") + "]",
         "route": "cuda",
         "source": f"crct_tpu_torch/csrc/attention_{kernel}.cu",
         "replaces": "crct_tpu/ops/attention.py:"
                     + ("82" if kernel == "fwd" else "96"),
-        "dtype": dname, "max_abs_err": err, **times,
+        "dtype": dname, "mode": mode if dname != "float32" else "both",
+        "max_abs_err": err, **times,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if dname == "float32":
@@ -412,10 +433,17 @@ def device_ms(fn, name=None, iters=20, warmup=3, tries=3):
 _DEVICE_MS = None
 
 
-def fwd_ms(attention, q, k, v, mask):
+def modes_of(attention):
+    """The attention modes the checkout's kernels take, as keyword
+    arguments (a checkout from before the modes takes none)."""
+    return ([{"mode": m} for m in attention.MODES]
+            if hasattr(attention, "MODES") else [{}])
+
+
+def fwd_ms(attention, q, k, v, mask, **mode):
     """Device ms of a K1 launch: a forward of fused_attention without a
     gradient."""
-    return device_ms(lambda: attention.fused_attention(q, k, v, mask),
+    return device_ms(lambda: attention.fused_attention(q, k, v, mask, **mode),
                      "attention_fwd")
 
 
@@ -429,11 +457,11 @@ def backward_ms(fn, g, inputs, name=None):
                                                  retain_graph=True), name)
 
 
-def bwd_ms(attention, q, k, v, mask, g):
+def bwd_ms(attention, q, k, v, mask, g, **mode):
     """Device ms of a K2 launch: the backward of one fused_attention forward,
     so that any checkout's K2 times the same way."""
-    return backward_ms(lambda *x: attention.fused_attention(*x, mask), g,
-                       (q, k, v), "attention_bwd")
+    return backward_ms(lambda *x: attention.fused_attention(*x, mask, **mode),
+                       g, (q, k, v), "attention_bwd")
 
 
 def attention_math(q, k, v, mask, g=None, keep=None, bwd_keep=None,
@@ -489,12 +517,12 @@ def rounding_note(rnd):
 
 
 def rounding(attention, q, k, v, mask, g=None):
-    """How bf16 results are rounded: the mean |error| against an fp64
-    computation, relative to the fp64 results' mean magnitude (averaged over
-    dq, dk and dv with the cotangent g), of the kernels' (K1's output, or
-    K2's gradients), of the plain versions', and of a control's: the plain
-    formulas with P (and dS) rounded to bf16 before the products that take
-    them."""
+    """How bf16 results of the -pallas mode are rounded: the mean |error|
+    against an fp64 computation, relative to the fp64 results' mean
+    magnitude (averaged over dq, dk and dv with the cotangent g), of the
+    kernels' (K1's output, or K2's gradients), of the plain versions', and
+    of a control's: the plain formulas with P (and dS) rounded to bf16
+    before the products that take them."""
     import torch
     d = [x.double() for x in (q, k, v)]
     exact = attention_math(*d, mask.double(),
@@ -503,14 +531,15 @@ def rounding(attention, q, k, v, mask, g=None):
                           None if g is None else g.float(),
                           round_p=bf16_round)
     if g is None:
-        got = (attention.fused_attention(q, k, v, mask),)
-        plain = (attention.attention_reference(q, k, v, mask),)
+        got = (attention.fused_attention(q, k, v, mask, mode=PALLAS),)
+        plain = (attention.attention_reference(q, k, v, mask, mode=PALLAS),)
         exact, ctrl = (exact,), (ctrl,)
     else:
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         got = torch.autograd.grad(
-            attention.fused_attention(*leaves, mask), leaves, g)
-        plain = attention.attention_bwd_reference(q, k, v, mask, g)
+            attention.fused_attention(*leaves, mask, mode=PALLAS), leaves, g)
+        plain = attention.attention_bwd_reference(q, k, v, mask, g,
+                                                  mode=PALLAS)
         exact, ctrl = exact[1:], ctrl[1:]
     ctrl = [x.to(q.dtype) for x in ctrl]
 
@@ -523,8 +552,9 @@ def rounding(attention, q, k, v, mask, g=None):
 def kernel_times(attention):
     """Phase times: device ms of a K1 launch at B rows and K2 at B_TRAIN at
     the four flagship shapes in fp32 and bf16 (key-only mask, no dropout),
-    through fused_attention alone, as the kernel phase times them: the
-    phase that compares two checkouts (--tree) on one card."""
+    in bf16 in each attention mode the checkout has, through
+    fused_attention alone, as the kernel phase times them: the phase that
+    compares two checkouts (--tree) on one card."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(SEED)
     ms = {}
@@ -538,23 +568,30 @@ def kernel_times(attention):
                                               generator=g) < 0.2,
                                    -10000.0, 0.0)
                 return q, k, v, gr, mask
-            q, k, v, _, mask = inputs(B)
-            k1 = fwd_ms(attention, q, k, v, mask)
-            q, k, v, gr, mask = inputs(B_TRAIN)
-            ms[f"{name},{str(dtype)[6:]}"] = {
-                "fwd": k1, "bwd": bwd_ms(attention, q, k, v, mask, gr)}
+            fwd = inputs(B)
+            bwd = inputs(B_TRAIN)
+            for mode in (modes_of(attention) if dtype == torch.bfloat16
+                         else [{}]):
+                q, k, v, _, mask = fwd
+                k1 = fwd_ms(attention, q, k, v, mask, **mode)
+                q, k, v, gr, mask = bwd
+                ms[",".join([name, str(dtype)[6:], *mode.values()])] = {
+                    "fwd": k1, "bwd": bwd_ms(attention, q, k, v, mask, gr,
+                                             **mode)}
     return ms
 
 
 K_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # K1 abs; K2 of max(1, |grad|)
 
 
-def k1_errors(attention, name, rows, shape, dtype, g, failures):
-    """K1 against its plain version at [rows, H, L, D] in dtype, key-only
-    and full masks, dropout 0 and 0.1: the output (through fused_attention,
-    which skips the log-sum-exp without a gradient, and attention_forward)
-    within K_TOL, the log-sum-exp within 1e-5 of max(1, |lse|). Returns the
-    worst output error and the worst relative lse error."""
+def k1_errors(attention, name, rows, shape, dtype, g, failures,
+              mode=DEFAULT):
+    """K1 against its plain version at [rows, H, L, D] in dtype and the
+    attention mode, key-only and full masks, dropout 0 and 0.1: the output
+    (through fused_attention, which skips the log-sum-exp without a
+    gradient, and attention_forward) within K_TOL, the log-sum-exp within
+    1e-5 of max(1, |lse|). Returns the worst output error and the worst
+    relative lse error."""
     import torch
     H, Lq, Lk, D = shape
     tol = K_TOL[str(dtype)[6:]]
@@ -567,17 +604,18 @@ def k1_errors(attention, name, rows, shape, dtype, g, failures):
             mask = torch.where(torch.rand(rows, 1, Lq if full else 1, Lk,
                                           device="cuda", generator=g)
                                < 0.2, -10000.0, 0.0)
-            got = attention.fused_attention(q, k, v, mask, rate, SEED)
+            got = attention.fused_attention(q, k, v, mask, rate, SEED,
+                                            mode=mode)
             got2, lse = attention.attention_forward(q, k, v, mask, rate,
-                                                    SEED)
+                                                    SEED, mode=mode)
             want, want_lse = attention.attention_reference(
-                q, k, v, mask, rate, SEED, return_lse=True)
+                q, k, v, mask, rate, SEED, return_lse=True, mode=mode)
             torch.cuda.synchronize()
             err = max((x.float() - want.float()).abs().max().item()
                       for x in (got, got2))
             err_lse = (lse - want_lse).abs().max().item()
             top = max(1.0, want_lse.abs().max().item())
-            case = (f"{name} {str(dtype)[6:]} "
+            case = (f"{name} {str(dtype)[6:]} {mode} "
                     f"{'full' if full else 'key-only'} mask rate {rate}")
             if not err <= tol:
                 failures.append(f"{case}: max abs err {err} > {tol}")
@@ -601,12 +639,14 @@ def bwd_inputs(g, rows, shape, dtype, full):
     return q, k, v, gr, mask
 
 
-def k2_errors(attention, name, rows, shape, dtype, g, failures):
-    """K2 against its plain version at [rows, H, L, D] in dtype, key-only
-    and full masks, dropout 0 and 0.1: the gradients of fused_attention (K1
-    then K2 on K1's output and log-sum-exp) against attention_bwd_reference
-    recomputing everything, within K_TOL of the larger of 1 and the largest
-    gradient magnitude. Returns the worst max abs error."""
+def k2_errors(attention, name, rows, shape, dtype, g, failures,
+              mode=DEFAULT):
+    """K2 against its plain version at [rows, H, L, D] in dtype and the
+    attention mode, key-only and full masks, dropout 0 and 0.1: the
+    gradients of fused_attention (K1 then K2 on K1's output and
+    log-sum-exp) against attention_bwd_reference recomputing everything,
+    within K_TOL of the larger of 1 and the largest gradient magnitude.
+    Returns the worst max abs error."""
     import torch
     tol = K_TOL[str(dtype)[6:]]
     worst = 0.0
@@ -614,15 +654,16 @@ def k2_errors(attention, name, rows, shape, dtype, g, failures):
         for rate in (0.0, 0.1):
             q, k, v, gr, mask = bwd_inputs(g, rows, shape, dtype, full)
             leaves = [x.requires_grad_() for x in (q, k, v)]
-            out = attention.fused_attention(*leaves, mask, rate, SEED)
+            out = attention.fused_attention(*leaves, mask, rate, SEED,
+                                            mode=mode)
             got = torch.autograd.grad(out, leaves, gr)
             want = attention.attention_bwd_reference(q, k, v, mask, gr,
-                                                     rate, SEED)
+                                                     rate, SEED, mode=mode)
             torch.cuda.synchronize()
             err = max((a.float() - w.float()).abs().max().item()
                       for a, w in zip(got, want))
             top = max(w.float().abs().max().item() for w in want)
-            case = (f"{name} {str(dtype)[6:]} "
+            case = (f"{name} {str(dtype)[6:]} {mode} "
                     f"{'full' if full else 'key-only'} mask rate {rate}")
             if not err <= tol * max(1.0, top):
                 failures.append(f"K2 {case}: max abs err {err} > {tol} "
@@ -631,30 +672,61 @@ def k2_errors(attention, name, rows, shape, dtype, g, failures):
     return worst
 
 
+def differing(got, want):
+    """The share of the elements of the tensors ``got`` that differ from
+    ``want``'s at all."""
+    n = sum(w.numel() for w in want)
+    return sum((a != w).sum().item() for a, w in zip(got, want)) / n
+
+
+def hold_share(what, kernel, share, control, failures):
+    """The bf16 default mode's results within SHARE of the plain version's
+    elements, and the control (the -pallas mode's results held to the same
+    plain version) outside it."""
+    if not share <= SHARE[kernel]:
+        failures.append(f"{what} bf16 {DEFAULT}: {share:.4g} of the elements "
+                        f"differ from the plain version's > {SHARE[kernel]}")
+    if not control > SHARE[kernel]:
+        failures.append(f"{what} bf16: the control (the {PALLAS} mode) "
+                        f"differs from the {DEFAULT} plain version in only "
+                        f"{control:.4g} of the elements, within "
+                        f"{SHARE[kernel]}: the check cannot see it")
+
+
+def share_note(kernel, sh):
+    return ("" if sh is None else
+            f"; elements that differ from the plain version: {sh[0]:.4g}, "
+            f"the {PALLAS} mode's (a control) {sh[1]:.4g} (limit "
+            f"{SHARE[kernel]})")
+
+
 def check_kernel(attention, name, shape, failures):
-    """K1 against its plain version at one flagship shape, fp32 and bf16,
-    key-only and full masks, dropout 0 and 0.1: the output (through
-    fused_attention, which skips the log-sum-exp without a gradient) and
-    the output and log-sum-exp of attention_forward (tolerance 1e-5 of
-    max(1, |lse|)). Its timings and bound in each dtype (key-only mask, no
-    dropout: the serve case)."""
+    """K1 against its plain version at one flagship shape, fp32 and bf16 in
+    both attention modes (VARIANTS), key-only and full masks, dropout 0
+    and 0.1: the output (through fused_attention, which skips the
+    log-sum-exp without a gradient) and the output and log-sum-exp of
+    attention_forward (tolerance 1e-5 of max(1, |lse|)). Its timings and
+    bound for each (key-only mask, no dropout: the serve case); in bf16,
+    -pallas mode's rounding against fp64 (ROUNDING), the default mode's
+    share of differing elements (SHARE)."""
     import torch
     import torch.nn.functional as F
     H, Lq, Lk, D = shape
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dname, mode in VARIANTS:
+        dtype = getattr(torch, dname)
         worst, worst_lse = k1_errors(attention, name, B, shape, dtype, g,
-                                     failures)
+                                     failures, mode)
         q, k, v = (torch.randn(B, H, L, D, device="cuda",
                                generator=g).to(dtype)
                    for L in (Lq, Lk, Lk))
         mask = torch.where(torch.rand(B, 1, 1, Lk, device="cuda",
                                       generator=g) < 0.2, -10000.0, 0.0)
         times = {
-            "ms": fwd_ms(attention, q, k, v, mask),
+            "ms": fwd_ms(attention, q, k, v, mask, mode=mode),
             "plain_ms": device_ms(lambda: attention.attention_reference(
-                q, k, v, mask)),
+                q, k, v, mask, mode=mode)),
             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask.to(dtype))),
         }
@@ -662,25 +734,34 @@ def check_kernel(attention, name, shape, failures):
         # q, k, v, out in the dtype; the key-only fp32 mask
         nbytes = (q.element_size() * (2 * B * H * Lq * D + 2 * B * H * Lk * D)
                   + 4.0 * B * Lk)
-        rnd = None
-        if dtype != torch.float32:
+        rnd = sh = None
+        if dname == "bfloat16" and mode == PALLAS:
             rnd = rounding(attention, q, k, v, mask)
             hold_rounding(f"K1 {name}", rnd, failures)
-        rows.append((kernel_row("fwd", name, dtype, worst, times, flops,
-                                nbytes), flops, nbytes, worst_lse, rnd))
+        elif dname == "bfloat16":
+            want = (attention.attention_reference(q, k, v, mask, mode=mode),)
+            sh = tuple(differing(
+                (attention.fused_attention(q, k, v, mask, mode=m),), want)
+                for m in (DEFAULT, PALLAS))
+            hold_share(f"K1 {name}", "K1", *sh, failures)
+        rows.append((kernel_row("fwd", name, dtype, mode, worst, times,
+                                flops, nbytes), flops, nbytes, worst_lse,
+                     rnd, sh))
     return rows
 
 
 def check_bwd_kernel(attention, name, shape, failures):
     """K2 against its plain version at one flagship shape at the train
-    batch, fp32 and bf16, key-only and full masks, dropout 0 and 0.1: the
-    gradients of fused_attention (K1 then K2 on K1's output and
-    log-sum-exp) against attention_bwd_reference recomputing everything.
-    The fp32 tolerance is 1e-5 of the larger of 1 and the largest gradient
-    magnitude, bf16's 2e-2 of it. Its timings and bound in each dtype
-    (key-only mask, no dropout): K2 through autograd's backward, the plain
-    version as the autograd Function runs it on CPU tensors (from K1's
-    output and lse), SDPA's backward alone."""
+    batch, fp32 and bf16 in both attention modes (VARIANTS), key-only and
+    full masks, dropout 0 and 0.1: the gradients of fused_attention (K1
+    then K2 on K1's output and log-sum-exp) against
+    attention_bwd_reference recomputing everything. The fp32 tolerance is
+    1e-5 of the larger of 1 and the largest gradient magnitude, bf16's
+    2e-2 of it. Its timings and bound for each (key-only mask, no
+    dropout): K2 through autograd's backward, the plain version as the
+    autograd Function runs it on CPU tensors (from K1's output and lse),
+    SDPA's backward alone; in bf16 the checks of check_kernel on the
+    gradients."""
     import torch
     import torch.nn.functional as F
     H, Lq, Lk, D = shape
@@ -690,15 +771,16 @@ def check_bwd_kernel(attention, name, shape, failures):
         return bwd_inputs(g, B_TRAIN, shape, dtype, full)
 
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dname, mode in VARIANTS:
+        dtype = getattr(torch, dname)
         worst = k2_errors(attention, name, B_TRAIN, shape, dtype, g,
-                          failures)
+                          failures, mode)
         q, k, v, gr, mask = inputs(dtype, False)
-        out, lse = attention.attention_forward(q, k, v, mask)
+        out, lse = attention.attention_forward(q, k, v, mask, mode=mode)
         times = {
-            "ms": bwd_ms(attention, q, k, v, mask, gr),
+            "ms": bwd_ms(attention, q, k, v, mask, gr, mode=mode),
             "plain_ms": device_ms(lambda: attention.attention_bwd_reference(
-                q, k, v, mask, gr, lse=lse, out=out)),
+                q, k, v, mask, gr, lse=lse, out=out, mode=mode)),
             # SDPA's backward alone
             "library_ms": backward_ms(
                 lambda *x: F.scaled_dot_product_attention(
@@ -709,12 +791,20 @@ def check_bwd_kernel(attention, name, shape, failures):
         nbytes = (q.element_size() * (3 * B_TRAIN * H * Lq * D
                                       + 4 * B_TRAIN * H * Lk * D)
                   + 4.0 * B_TRAIN * Lk)
-        rnd = None
-        if dtype != torch.float32:
+        rnd = sh = None
+        if dname == "bfloat16" and mode == PALLAS:
             rnd = rounding(attention, q, k, v, mask, gr)
             hold_rounding(f"K2 {name}", rnd, failures)
-        rows.append((kernel_row("bwd", name, dtype, worst, times, flops,
-                                nbytes), flops, nbytes, rnd))
+        elif dname == "bfloat16":
+            want = attention.attention_bwd_reference(q, k, v, mask, gr,
+                                                     mode=mode)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            sh = tuple(differing(torch.autograd.grad(
+                attention.fused_attention(*leaves, mask, mode=m), leaves, gr),
+                want) for m in (DEFAULT, PALLAS))
+            hold_share(f"K2 {name}", "K2", *sh, failures)
+        rows.append((kernel_row("bwd", name, dtype, mode, worst, times,
+                                flops, nbytes), flops, nbytes, rnd, sh))
 
     # out is linear in v: <out, C> = <v, dv> only with the forward's mask
     q, k, v, gr, mask = inputs(torch.float32, False)
@@ -947,7 +1037,7 @@ def serve(card, attention, failures):
                 "questions": [{"image_index": i, "question_id": q}
                               for i, q in batch]})
             torch.cuda.synchronize()
-            launches = {name: attention.LAUNCHES[("float32", *shape)]
+            launches = {name: attention.LAUNCHES[("float32", DEFAULT, *shape)]
                         for name, shape in SHAPES.items()}
             forwards = scorer.dispatches
             batches = list(server.batcher.batch_sizes)
@@ -1155,7 +1245,7 @@ def eval_phase(card, attention, failures):
     counts = {}           # path -> {(dtype, shape name): K1 launches}
 
     def k1_counts():
-        return {(d, n): attention.LAUNCHES[(d, *s)]
+        return {(d, n): attention.LAUNCHES[(d, DEFAULT, *s)]
                 for n, s in SHAPES.items()
                 for d in ("float32", "bfloat16")}
 
@@ -1624,7 +1714,7 @@ def train(card, attention, failures):
             torch.cuda.synchronize()
             eval_s.append(time.perf_counter() - t)
             for name, shape in SHAPES.items():
-                key = ("bfloat16", *shape)
+                key = ("bfloat16", DEFAULT, *shape)
                 eval_k1[name] = (attention.LAUNCHES[key]
                                  - before.get(key, 0))
             return total
@@ -1638,9 +1728,9 @@ def train(card, attention, failures):
                                               device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {name: (attention.LAUNCHES[("bfloat16", *shape)]
+        counts = {name: (attention.LAUNCHES[("bfloat16", DEFAULT, *shape)]
                          - eval_k1.get(name, 0),
-                         attention.BWD_LAUNCHES[("bfloat16", *shape)])
+                         attention.BWD_LAUNCHES[("bfloat16", DEFAULT, *shape)])
                   for name, shape in SHAPES.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1729,8 +1819,8 @@ def train(card, attention, failures):
 
 
 def cross_attentions(attention):
-    """The attention functions that the bf16 cross-check runs beside the
-    kernels, each step held against the plain one:
+    """The attention functions that the bf16 -pallas cross-check runs beside
+    the kernels, each step held against the plain one:
       witness      - the plain forward and the kernels' backward (K1 then K2
                      on the same inputs): a step that differs from the plain
                      one by K2 alone, as steps through the earlier CUDA-core
@@ -1745,6 +1835,9 @@ def cross_attentions(attention):
     Each is attention_math in fp32 (see CONTROLS)."""
     import torch
 
+    # a checkout from before the modes has the -pallas numerics alone
+    pallas = {"mode": PALLAS} if hasattr(attention, "MODES") else {}
+
     def keep(q, k, rate, seed):
         shape = (*q.shape[:3], k.shape[2])
         return (attention.keep_mask(shape, seed, rate, q.device)
@@ -1756,7 +1849,8 @@ def cross_attentions(attention):
             ctx.save_for_backward(q, k, v, mask)
             ctx.rate, ctx.seed = rate, seed
             with torch.autocast(q.device.type, enabled=False):
-                return attention.attention_reference(q, k, v, mask, rate, seed)
+                return attention.attention_reference(q, k, v, mask, rate, seed,
+                                                     **pallas)
 
         @staticmethod
         def backward(ctx, g):
@@ -1765,7 +1859,7 @@ def cross_attentions(attention):
             with torch.enable_grad(), torch.autocast(q.device.type,
                                                      enabled=False):
                 out = attention.fused_attention(*leaves, mask, ctx.rate,
-                                                ctx.seed)
+                                                ctx.seed, **pallas)
             return (*torch.autograd.grad(out, leaves, g), None, None, None)
 
     class Formulas(torch.autograd.Function):
@@ -1792,13 +1886,15 @@ def cross_attentions(attention):
             return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                     *[None] * 6)
 
+    # each stands for the -pallas numerics, whatever mode the model asks
     def formulas(rounds, fwd_shift, bwd_shift):
-        return lambda q, k, v, mask, rate=0.0, seed=0: Formulas.apply(
-            q, k, v, mask, rate, seed, bf16_round if rounds else None,
-            fwd_shift, bwd_shift)
+        return lambda q, k, v, mask, rate=0.0, seed=0, mode=None: \
+            Formulas.apply(q, k, v, mask, rate, seed,
+                           bf16_round if rounds else None, fwd_shift,
+                           bwd_shift)
 
-    return {"witness": lambda q, k, v, mask, rate=0.0, seed=0: Witness.apply(
-                q, k, v, mask, rate, seed),
+    return {"witness": lambda q, k, v, mask, rate=0.0, seed=0, mode=None:
+            Witness.apply(q, k, v, mask, rate, seed),
             **{name: formulas(*args) for name, args in CONTROLS.items()}}
 
 
@@ -1831,17 +1927,18 @@ def cross_check(attention, batch, params, failures, seeds=(SEED,)):
     """Phase 7: one train step from the same weights and generator state
     with dropout on, through K1/K2 and through the plain forward and
     backward, in fp32 and in bf16 (autocast over fp32 masters, as the
-    train phase runs), for each generator seed. fp32: the limits of
-    FP32_CROSS (loss, every gradient's max |diff| over its largest
-    magnitude, the parameters after the update). bf16: those of BF16_CROSS
-    (loss, the worst leaf's relative L2 gradient difference apart from key
-    biases, whose gradient is zero in exact arithmetic, so that what they
-    get is rounding noise, printed); the update is printed, not held
-    (AdamW's first step moves a parameter by about lr whatever the
-    gradient's size).
-    The bf16 witness and control steps of cross_attentions are held against
-    the plain step too: the controls of MUST_FAIL must fail the limits.
-    Returns the readings."""
+    train phase runs) in the default attention mode and with -pallas, for
+    each generator seed. fp32: the limits of FP32_CROSS (loss, every
+    gradient's max |diff| over its largest magnitude, the parameters after
+    the update). bf16: those of BF16_CROSS (loss, the worst leaf's
+    relative L2 gradient difference apart from key biases, whose gradient
+    is zero in exact arithmetic, so that what they get is rounding noise,
+    printed); the update is printed, not held (AdamW's first step moves a
+    parameter by about lr whatever the gradient's size).
+    The bf16 -pallas witness and control steps of cross_attentions are held
+    against the plain step too: the controls of MUST_FAIL must fail the
+    limits. Returns the readings and the kernels' launches by mode (the
+    -pallas step's are that mode's path)."""
     import re
 
     import torch
@@ -1855,9 +1952,11 @@ def cross_check(attention, batch, params, failures, seeds=(SEED,)):
     noise = re.compile(r"\.key\d?\.bias$")
     others = cross_attentions(attention)
     readings = []
-    for bf16 in (False, True):
-        pd = dict(params, bf16=bf16)
-        kind = "bf16" if bf16 else "fp32"
+    launched = {"k1": {}, "k2": {}}
+    for bf16, mode in ((False, DEFAULT), (True, DEFAULT), (True, PALLAS)):
+        pd = dict(params, bf16=bf16, pallas=mode == PALLAS)
+        kind = "bf16" + (" -pallas" if mode == PALLAS else "") if bf16 \
+            else "fp32"
         for seed in seeds:
             def one_step(fn=None):
                 with mock.patch.object(layers, "fused_attention",
@@ -1874,6 +1973,10 @@ def cross_check(attention, batch, params, failures, seeds=(SEED,)):
             attention.reset_launch_count()
             got = one_step()
             counts = (attention.launch_count(), attention.bwd_launch_count())
+            for k, c in (("k1", attention.LAUNCHES),
+                         ("k2", attention.BWD_LAUNCHES)):
+                for key, n in c.items():
+                    launched[k][key] = launched[k].get(key, 0) + n
             want = one_step(attention.plain_attention)
             after = (attention.launch_count(), attention.bwd_launch_count())
             if after != counts or min(counts) < 1:
@@ -1884,7 +1987,7 @@ def cross_check(attention, batch, params, failures, seeds=(SEED,)):
                                 f"got gradients")
             runs = {"kernels": step_diff(got, want, noise)}
             del got
-            if bf16:
+            if mode == PALLAS:
                 for label, fn in others.items():
                     runs[label] = step_diff(one_step(fn), want, noise)
             del want
@@ -1898,9 +2001,9 @@ def cross_check(attention, batch, params, failures, seeds=(SEED,)):
                                     f"{r[key]} > {tol} (loss {r['loss']} vs "
                                     f"plain {r['plain_loss']}; gradient of "
                                     f"{r[key + '_of'] if key + '_of' in r else '-'})")
-            for label in MUST_FAIL if bf16 else ():
+            for label in MUST_FAIL if mode == PALLAS else ():
                 if all(runs[label][key] <= tol for key, tol in limits.items()):
-                    failures.append(f"bf16 cross-check: {label} meets the "
+                    failures.append(f"{kind} cross-check: {label} meets the "
                                     f"limits: " + ", ".join(
                                         f"{key} {runs[label][key]}"
                                         for key in limits))
@@ -1923,7 +2026,7 @@ def cross_check(attention, batch, params, failures, seeds=(SEED,)):
                         ("loss_rel", "grad_all", "grad_all_of", "grad",
                          "grad_of", "grad_l2", "grad_l2_of", "param")}
                 for label, x in runs.items()}})
-    return readings
+    return readings, launched
 
 
 def chart_boxes(n, rng):
@@ -3052,7 +3155,7 @@ def ingest_phase(card, attention, failures):
                     lambda q: post(base + "/v1/answer", q), asked))
             wall = time.perf_counter() - t0
             torch.cuda.synchronize()
-            launches = {name: attention.LAUNCHES[("float32", *shape)]
+            launches = {name: attention.LAUNCHES[("float32", DEFAULT, *shape)]
                         for name, shape in SHAPES.items()}
             total = attention.launch_count()
             forwards = scorer.dispatches
@@ -3294,9 +3397,10 @@ def remat_steps(attention, batch, params, card, failures):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
             if i == 0:
-                k = {name: (attention.LAUNCHES[("bfloat16", *shape)],
-                            attention.BWD_LAUNCHES[("bfloat16", *shape)])
-                     for name, shape in SHAPES.items()}
+                k = {name: (attention.LAUNCHES[key],
+                            attention.BWD_LAUNCHES[key])
+                     for name, shape in SHAPES.items()
+                     for key in [("bfloat16", DEFAULT, *shape)]}
                 grads = {n: p.grad.float().cpu()
                          for n, p in model.named_parameters()
                          if p.grad is not None}
@@ -3305,10 +3409,10 @@ def remat_steps(attention, batch, params, card, failures):
                            wall=wall, busy=busy,
                            median=float(np.median(ms[-3:])),
                            peak=torch.cuda.max_memory_allocated() / 1e9,
-                           total={name: (attention.LAUNCHES[("bfloat16", *s)],
-                                         attention.BWD_LAUNCHES[
-                                             ("bfloat16", *s)])
-                                  for name, s in SHAPES.items()})
+                           total={name: (attention.LAUNCHES[key],
+                                         attention.BWD_LAUNCHES[key])
+                                  for name, s in SHAPES.items()
+                                  for key in [("bfloat16", DEFAULT, *s)]})
         del model, step
         torch.cuda.empty_cache()
 
@@ -3803,8 +3907,8 @@ def child_ddp_train(tree, out_json, argv):
     from crct_tpu_torch.train import train_loop
 
     def k1():
-        return {n: (attention.LAUNCHES[("bfloat16", *s)],
-                    attention.BWD_LAUNCHES[("bfloat16", *s)])
+        return {n: (attention.LAUNCHES[("bfloat16", DEFAULT, *s)],
+                    attention.BWD_LAUNCHES[("bfloat16", DEFAULT, *s)])
                 for n, s in SHAPES.items()}
 
     evals, losses, counted = {}, [], []
@@ -4011,9 +4115,9 @@ def child_ranks(tree, root, rank, world, port, backend):
     local = B_TRAIN // world
     attention.reset_launch_count()
     loss, grads = qa_step(slice(rank * local, (rank + 1) * local))
-    res["qa_k1"] = {n: attention.LAUNCHES[("float32", *s)]
+    res["qa_k1"] = {n: attention.LAUNCHES[("float32", DEFAULT, *s)]
                     for n, s in SHAPES.items()}
-    res["qa_k2"] = {n: attention.BWD_LAUNCHES[("float32", *s)]
+    res["qa_k2"] = {n: attention.BWD_LAUNCHES[("float32", DEFAULT, *s)]
                     for n, s in SHAPES.items()}
     h = hashlib.sha256()
     for n in sorted(grads):
@@ -4047,7 +4151,7 @@ def child_ranks(tree, root, rank, world, port, backend):
         total, breakdown = cli_eval.main(case["eval_argv"] + [
             "-cuda_num", device.split(":")[1]])
     res["total"], res["breakdown"] = total.tolist(), breakdown.tolist()
-    res["eval_k1"] = {n: attention.LAUNCHES[("float32", *s)]
+    res["eval_k1"] = {n: attention.LAUNCHES[("float32", DEFAULT, *s)]
                       for n, s in SHAPES.items()}
     with open(case["eval_argv"][-1] + f".rank{rank}") as f:
         res["eval_questions"] = sum(1 for _ in f)
@@ -4139,7 +4243,7 @@ def weights_phase(card, attention, failures):
 
     def kernel_counts():
         return {(k, d, n): (attention.LAUNCHES if k == "k1" else
-                            attention.BWD_LAUNCHES)[(d, *s)]
+                            attention.BWD_LAUNCHES)[(d, DEFAULT, *s)]
                 for n, s in SHAPES.items() for d in ("float32", "bfloat16")
                 for k in ("k1", "k2")}
 
@@ -4369,23 +4473,24 @@ def weights_phase(card, attention, failures):
 
 def record_shapes(attention, rk):
     """Patches of the three kernels' launch functions that record what a
-    path gives them: (dtype, B, H, Lq, Lk, D) of each K1 and K2 launch,
-    and the inputs of K3's first call at each (cotangent dtype, P, C,
-    pyramid, map dtype, sampling ratio), copied. They call through, so
-    each launch is counted as before."""
+    path gives them: (dtype, mode, B, H, Lq, Lk, D) of each K1 and K2
+    launch (the mode their last argument), and the inputs of K3's first
+    call at each (cotangent dtype, P, C, pyramid, map dtype, sampling
+    ratio), copied. They call through, so each launch is counted as
+    before."""
     seen = {"k1": set(), "k2": set(), "k3": {}}
     launch, launch_bwd = attention._launch, attention._launch_bwd
     k3 = rk.mlra_backward_kernel
 
-    def k1(q, k, *args, **kwargs):
-        seen["k1"].add((str(q.dtype)[6:], *q.shape[:3], k.shape[2],
-                        q.shape[3]))
-        return launch(q, k, *args, **kwargs)
+    def k1(q, k, *args):
+        seen["k1"].add((str(q.dtype)[6:], args[-1], *q.shape[:3],
+                        k.shape[2], q.shape[3]))
+        return launch(q, k, *args)
 
-    def k2(q, k, *args, **kwargs):
-        seen["k2"].add((str(q.dtype)[6:], *q.shape[:3], k.shape[2],
-                        q.shape[3]))
-        return launch_bwd(q, k, *args, **kwargs)
+    def k2(q, k, *args):
+        seen["k2"].add((str(q.dtype)[6:], args[-1], *q.shape[:3],
+                        k.shape[2], q.shape[3]))
+        return launch_bwd(q, k, *args)
 
     def roi(g, geo, shapes, dtype, S):
         key = (str(g.dtype)[6:], g.shape[1], g.shape[3],
@@ -4403,26 +4508,27 @@ def record_shapes(attention, rk):
 
 def check_shapes(attention, rk, seen, phase, card, failures,
                  need=("k1", "k2", "k3")):
-    """K1 and K2 against their plain versions at each (dtype, B, H, Lq, Lk,
-    D) ``phase``'s path launched them at (``seen``, from record_shapes), on
-    random inputs as the kernel phase draws them (both masks, dropout 0
-    and 0.1) and with its limits; K3 against its plain version on the
-    geometry of the path's first call at each of its shapes, with that
-    call's cotangent and with a unit-normal one, with the kernel phase's
-    limits. A kernel of ``need`` with no shape to check fails too."""
+    """K1 and K2 against their plain versions at each (dtype, mode, B, H,
+    Lq, Lk, D) ``phase``'s path launched them at (``seen``, from
+    record_shapes), on random inputs as the kernel phase draws them (both
+    masks, dropout 0 and 0.1) and with its limits; K3 against its plain
+    version on the geometry of the path's first call at each of its
+    shapes, with that call's cotangent and with a unit-normal one, with the
+    kernel phase's limits. A kernel of ``need`` with no shape to check
+    fails too."""
     import torch
     for kname, seen_k, errors in (("K1", seen["k1"], k1_errors),
                                   ("K2", seen["k2"], k2_errors)):
-        for dname, rows, H, Lq, Lk, D in sorted(seen_k):
+        for dname, mode, rows, H, Lq, Lk, D in sorted(seen_k):
             g = torch.Generator(device="cuda").manual_seed(SEED)
             name = f"{phase} {kname} (B, H, Lq, Lk, D) = {(rows, H, Lq, Lk, D)}"
             err = errors(attention, name, rows, (H, Lq, Lk, D),
-                         getattr(torch, dname), g, failures)
+                         getattr(torch, dname), g, failures, mode)
             err = err[0] if kname == "K1" else err
-            say(phase, f"{name} {dname}: max abs err {err:.3g} against "
-                         f"the plain version (tol {K_TOL[dname]}"
-                         f"{'' if kname == 'K1' else ' of max(1, |grad|)'}; "
-                         f"both masks, dropout 0 and 0.1; {card})")
+            say(phase, f"{name} {dname} {mode}: max abs err {err:.3g} "
+                       f"against the plain version (tol {K_TOL[dname]}"
+                       f"{'' if kname == 'K1' else ' of max(1, |grad|)'}; "
+                       f"both masks, dropout 0 and 0.1; {card})")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for (gname, P, C, shapes, dname, S), (g_path, geo) in sorted(
             seen["k3"].items(), key=lambda kv: kv[0][:2]):
@@ -4483,7 +4589,8 @@ def proof_phase(card, failures):
             return None, {"k1": {}, "k2": {}, "k3": {}}
         seconds = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    # launches by kernel and key ((dtype, H, Lq, Lk, D); K3 (dtype, P, C))
+    # launches by kernel and key ((dtype, mode, H, Lq, Lk, D); K3 (dtype,
+    # P, C))
     launches = {name: {k: c - b.get(k, 0) for k, c in now.items()
                        if c > b.get(k, 0)}
                 for name, now, b in zip(
@@ -4619,7 +4726,7 @@ def bench_phase(card, failures, argv=BENCH_ARGV, nproc=1):
     if named != card or aux["n_chips"] != nproc:
         failures.append(f"{what}: names {named} x {aux['n_chips']}, not "
                         f"{card} x {nproc}")
-    if aux["attention_path"] != "cuda_k1_k2":
+    if aux["attention_path"] != f"cuda_k1_k2_{DEFAULT}":
         failures.append(f"{what}: attention_path {aux['attention_path']}")
     save_line("bench" + (f"_{nproc}cards" if nproc > 1 else ""), line)
     head = {k: aux[k] for s in sections for k in BENCH_KEYS[s][:2]
@@ -4678,10 +4785,12 @@ def check_tool(name, res, launched, failures):
                 if r["k1_launches"] < 1]
     elif name == "attention_shape_bench":
         for shape, r in res["shapes"].items():
-            if r["kernels_launches"]["k1"] < 1:
-                bad.append(f"{shape}: no K1 on the kernels' path")
-            if shape.startswith("train") and r["kernels_launches"]["k2"] < 1:
-                bad.append(f"{shape}: no K2 on the kernels' path")
+            for path in ("kernels", "pallas"):
+                if r[f"{path}_launches"]["k1"] < 1:
+                    bad.append(f"{shape}: no K1 on the {path} path")
+                if shape.startswith("train") \
+                        and r[f"{path}_launches"]["k2"] < 1:
+                    bad.append(f"{shape}: no K2 on the {path} path")
             for path in ("plain", "sdpa"):
                 if any(r[f"{path}_launches"].values()):
                     bad.append(f"{shape}: kernels on the {path} path")
@@ -4772,10 +4881,11 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
     import torch
     fwd_rows = {}
     for kname, shape in SHAPES.items():
-        for row, flops, nbytes, lse_err, rnd in check_kernel(
+        for row, flops, nbytes, lse_err, rnd, sh in check_kernel(
                 attention, kname, shape, failures):
-            fwd_rows[(kname, row["dtype"])] = row
-            say("kernel", f"K1 {kname} {row['dtype']} (B, H, Lq, Lk, D) = "
+            fwd_rows[(kname, row["dtype"], row["mode"])] = row
+            say("kernel", f"K1 {kname} {row['dtype']} {row['mode']} "
+                          f"(B, H, Lq, Lk, D) = "
                           f"{(B, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
                           f"{K_TOL[row['dtype']]}), "
@@ -4785,7 +4895,8 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                           f"{row['library_ms']:.4f} ms, bound "
                           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)"
-                          + rounding_note(rnd) + f" ({card})")
+                          + rounding_note(rnd) + share_note("K1", sh)
+                          + f" ({card})")
 
     # K2's layout: shared memory, warps (key slabs) and resident blocks per
     # SM, and the waves of a B_TRAIN * H launch, in fp32 / bf16
@@ -4810,14 +4921,16 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                    f"{per_sm[0]}/{per_sm[1]} blocks, "
                    + "/".join(f"{B_TRAIN * H / (n * sms):.2f}"
                               for n in per_sm) + " waves")
-    say("build", f"attention_bwd per block (fp32/bf16) on {sms} SMs at B = "
-                 f"{B_TRAIN}: " + "; ".join(occ))
+    say("build", f"attention_bwd per block (fp32/bf16, the {PALLAS} "
+                 f"instances) on {sms} SMs at B = {B_TRAIN}: "
+                 + "; ".join(occ))
     bwd_rows = {}
     for kname, shape in SHAPES.items():
         rows, ident = check_bwd_kernel(attention, kname, shape, failures)
-        for row, flops, nbytes, rnd in rows:
-            bwd_rows[(kname, row["dtype"])] = row
-            say("kernel", f"K2 {kname} {row['dtype']} (B, H, Lq, Lk, D) = "
+        for row, flops, nbytes, rnd, sh in rows:
+            bwd_rows[(kname, row["dtype"], row["mode"])] = row
+            say("kernel", f"K2 {kname} {row['dtype']} {row['mode']} "
+                          f"(B, H, Lq, Lk, D) = "
                           f"{(B_TRAIN, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
                           f"{K_TOL[row['dtype']]} of "
@@ -4828,7 +4941,7 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                           f" bound {row['bound_ms']:.4f} ms "
                           f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP, "
                           f"{nbytes / 1e6:.1f} MB)" + rounding_note(rnd)
-                          + f" ({card})")
+                          + share_note("K2", sh) + f" ({card})")
 
     roi_rows = [row for name in ROI_SHAPES
                 for row in check_roi_kernel(roi_align, rk, name, card,
@@ -4939,8 +5052,9 @@ def main():
         mark("cross")
         if batch is None:
             batch, params = train_batch()
-        readings = cross_check(attention, batch, params, failures,
-                               [SEED + i for i in range(args.seeds)])
+        readings, cross_launches = cross_check(
+            attention, batch, params, failures,
+            [SEED + i for i in range(args.seeds)])
         if not whole:
             print(json.dumps({"phase": "cross", "tree": tree, "card": card,
                               "readings": readings}), flush=True)
@@ -4981,60 +5095,88 @@ def main():
         return 1
     if not whole:
         return 0
-    # launches in the main paths: fp32 K1 rows count serving's, the eval
-    # phase's fp32 paths and the ingest phase's answers, bf16 rows the (bf16) training run's, its
-    # in-train eval's and eval -bf16's; no main path runs K2 in fp32 (the
-    # kernel phase and the fp32 cross-check step do)
-    # the parallel phase's paths: K1 in bf16 in the remat steps and the
-    # -ddp run, in fp32 in the gloo ranks' QA step and eval; K2 likewise
+    # launches in the main paths, all in the default attention mode: fp32
+    # K1 rows count serving's, the eval phase's fp32 paths and the ingest
+    # phase's answers, bf16 rows the (bf16) training run's, its in-train
+    # eval's and eval -bf16's; the parallel phase's: K1 in bf16 in the remat
+    # steps and the -ddp run, in fp32 in the gloo ranks' QA step and eval;
+    # K2 likewise. The cross-check's steps launch both kernels in fp32 and
+    # in bf16 in each mode: the -pallas mode's path. An fp32 row (one kernel
+    # instance, "both" modes) counts the launches of either mode.
     par_k1 = {p: c for p, c in par.items()
               if not p.endswith("K2") and p != "gloo detector"}
     par_k2 = {p[:-3]: c for p, c in par.items() if p.endswith("K2")}
-    for (kname, dname), row in fwd_rows.items():
-        paths = {p: c[(dname, kname)] for p, c in eval_counts.items()
-                 if c.get((dname, kname))}
-        if dname == "float32":
-            paths = {"serve": launches[kname], **paths,
-                     "ingest": ingest_launches[kname]}
-        else:
-            paths = {"train": train_counts[kname][0],
-                     "in-train eval": in_train_k1[kname], **paths}
-        paths.update({p: c[(kname, dname)] for p, c in par_k1.items()
-                      if c.get((kname, dname))})
-        paths.update({p: c[(dname, kname)] for p, c in weights["k1"].items()
-                      if c.get((dname, kname))})
+
+    def of_row(key, kname, dname, mode, at=2):
+        """Whether a launch key (dtype, mode, H, Lq, Lk, D) counts for the
+        row of (kname, dname, mode); ``at`` where its H stands."""
+        return (key[0] == dname and mode in ("both", key[1])
+                and tuple(key[at:at + 4]) == SHAPES[kname])
+
+    def cross(k, kname, dname, mode):
+        n = sum(c for key, c in cross_launches[k].items()
+                if of_row(key, kname, dname, mode))
+        return {"cross": n} if n else {}
+
+    def proof(k, kname, dname, mode):
+        # the proof's tiny model: the same kind, Lq and Lk
+        return sum(c for key, c in proof_launches[k].items()
+                   if key[0] == dname and mode in ("both", key[1])
+                   and key[3:5] == SHAPES[kname][1:3])
+
+    for (kname, dname, mode), row in fwd_rows.items():
+        paths = {}
+        if mode != PALLAS:
+            paths = {p: c[(dname, kname)] for p, c in eval_counts.items()
+                     if c.get((dname, kname))}
+            if dname == "float32":
+                paths = {"serve": launches[kname], **paths,
+                         "ingest": ingest_launches[kname]}
+            else:
+                paths = {"train": train_counts[kname][0],
+                         "in-train eval": in_train_k1[kname], **paths}
+            paths.update({p: c[(kname, dname)] for p, c in par_k1.items()
+                          if c.get((kname, dname))})
+            paths.update({p: c[(dname, kname)]
+                          for p, c in weights["k1"].items()
+                          if c.get((dname, kname))})
+        paths.update(cross("k1", kname, dname, mode))
         row["path"] = ", ".join(paths)
         row["launches"] = sum(paths.values())
-        row["proof_launches"] = sum(
-            c for k, c in proof_launches["k1"].items()
-            if k[0] == dname and k[2:4] == SHAPES[kname][1:3])
-    for (kname, dname), row in bwd_rows.items():
-        paths = {} if dname == "float32" else {
-            "train": train_counts[kname][1]}
-        paths.update({p: c[(kname, dname)] for p, c in par_k2.items()
-                      if c.get((kname, dname))})
-        paths.update({p: c[(dname, kname)] for p, c in weights["k2"].items()
-                      if c.get((dname, kname))})
+        row["proof_launches"] = proof("k1", kname, dname, mode)
+    for (kname, dname, mode), row in bwd_rows.items():
+        paths = {}
+        if mode != PALLAS:
+            paths = {} if dname == "float32" else {
+                "train": train_counts[kname][1]}
+            paths.update({p: c[(kname, dname)] for p, c in par_k2.items()
+                          if c.get((kname, dname))})
+            paths.update({p: c[(dname, kname)]
+                          for p, c in weights["k2"].items()
+                          if c.get((dname, kname))})
+        paths.update(cross("k2", kname, dname, mode))
         row["path"] = ", ".join(paths) or "none"
         row["launches"] = sum(paths.values())
-        row["proof_launches"] = sum(
-            c for k, c in proof_launches["k2"].items()
-            if k[0] == dname and k[2:4] == SHAPES[kname][1:3])
-    # the bench's sections and the tools' runs, by kernel, dtype and shape
-    # (Launches' keys)
+        row["proof_launches"] = proof("k2", kname, dname, mode)
+    # the bench's sections and the tools' runs, by kernel, dtype, mode and
+    # shape (Launches' keys)
     extra = {f"bench {s}": c for s, c in bench_shapes.items()}
     extra.update({f"tools {t}": c for t, c in tool_shapes.items()})
 
-    def add_paths(row, key):
-        more = {p: c[key] for p, c in extra.items() if c.get(key)}
+    def add_paths(row, keys):
+        more = {p: sum(c.get(key, 0) for key in keys)
+                for p, c in extra.items()}
+        more = {p: n for p, n in more.items() if n}
         row["path"] = ", ".join([row["path"]] * (row["path"] != "none")
                                 + list(more)) or "none"
         row["launches"] += sum(more.values())
 
     for tag, rows in (("K1", fwd_rows), ("K2", bwd_rows)):
-        for (kname, dname), row in rows.items():
-            add_paths(row, f"{tag} {dname} "
-                           + "x".join(map(str, SHAPES[kname])))
+        for (kname, dname, mode), row in rows.items():
+            add_paths(row, [f"{tag} {dname} {m} "
+                            + "x".join(map(str, SHAPES[kname]))
+                            for m in ((DEFAULT, PALLAS) if mode == "both"
+                                      else (mode,))])
     kernels = list(fwd_rows.values()) + list(bwd_rows.values())
     # the detector phase trains in fp32 (and so do the gloo ranks and the
     # proof); the bench's and the tools' K3 launches by dtype
@@ -5046,8 +5188,13 @@ def main():
             shape, 0)) if fp32 else 0
         row["proof_launches"] = proof_launches["k3"].get(
             (row["dtype"], ROI_SHAPES[shape][0], C_FPN), 0)
-        add_paths(row, f"K3 {row['dtype']} P{ROI_SHAPES[shape][0]} C{C_FPN}")
+        add_paths(row, [f"K3 {row['dtype']} P{ROI_SHAPES[shape][0]} "
+                        f"C{C_FPN}"])
     kernels += roi_rows
+    idle = [row["name"] for row in kernels if row["launches"] < 1]
+    if idle:
+        print(f"FAIL: no path launched {idle}", file=sys.stderr)
+        return 1
     save_line("kernels", {"card": card, "kernels": kernels})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

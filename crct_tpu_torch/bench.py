@@ -5,7 +5,9 @@ Runs the flagship full-size model (config/vilbert.json scale: 12 text layers
 at 768, 6 vision layers at 1024, 6 co-attention blocks at bi_hidden 1024)
 through ``train_loop.make_train_step`` at the reference's per-device batch
 (80, README.md:69) on PlotQA shapes (124 tokens, 44 regions), under bf16
-autocast over fp32 masters as ``cli.train -bf16`` runs it, then:
+autocast over fp32 masters as ``cli.train -bf16`` runs it, with the
+attention numerics of the JAX package's default path (``--pallas``: of its
+Pallas path; ``aux.attention_path`` names the one that ran), then:
 
   eval           ``make_eval_step``, parameters cast to bf16 as ``cli.evaluate
                  -bf16`` does, on 480-row chunks: candidate rows/s
@@ -56,7 +58,7 @@ rig: fp16 autocast at ~0.7 s a step at batch 80, ~115 QA pairs/s/GPU. It is
 an estimate for that GPU rig, not a measurement.
 
 Usage: python -m crct_tpu_torch.bench [--no-e2e] [--no-detector] [--all]
-           [--roofline] [--device cpu] [--tiny]
+           [--roofline] [--pallas] [--device cpu] [--tiny]
        torchrun --nproc_per_node N -m crct_tpu_torch.bench ...
 (``--tiny``: a small model and sizes, to rehearse the bench on the CPU)
 """
@@ -80,6 +82,7 @@ import torch
 
 from crct_tpu_torch import parallel
 from crct_tpu_torch.config import CRCTModelConfig, default_params
+from crct_tpu_torch.ops.attention import PALLAS, ROUND_PROBS
 from crct_tpu_torch.utils.device import resolve_device
 from crct_tpu_torch.utils.profiling import device_ms
 
@@ -95,8 +98,6 @@ FLOP_COUNT_ROWS = 2
 # calls in a window of the roofline's device time: it is steady from call to
 # call, and the profiler slows the host several times over
 PROFILED_CALLS = 2
-NOT_PORTED = ("--pallas is not ported: the port always runs its CUDA "
-              "attention kernels K1 and K2 (aux.attention_path)")
 
 # the flagship sizes, and --tiny's for a rehearsal on the CPU
 SIZES = {
@@ -262,8 +263,8 @@ def _launch_totals() -> Counter:
     total = Counter()
     for tag, counts in (("K1", attention.LAUNCHES),
                         ("K2", attention.BWD_LAUNCHES)):
-        for (dtype, H, Lq, Lk, D), n in list(counts.items()):
-            total[f"{tag} {dtype} {H}x{Lq}x{Lk}x{D}"] += n
+        for (dtype, mode, H, Lq, Lk, D), n in list(counts.items()):
+            total[f"{tag} {dtype} {mode} {H}x{Lq}x{Lk}x{D}"] += n
     for (dtype, P, C), n in list(roi_align_kernel.LAUNCHES.items()):
         total[f"K3 {dtype} P{P} C{C}"] += n
     return total
@@ -859,13 +860,13 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
                     help="also the 512 px, bf16 and fast-NMS detector steps")
     ap.add_argument("--roofline", action="store_true",
                     help="also the forward / grad / no-dropout decomposition")
-    ap.add_argument("--pallas", action="store_true", help=NOT_PORTED)
+    ap.add_argument("--pallas", action="store_true",
+                    help="K1 and K2 with the numerics of the JAX Pallas "
+                         "path (bf16 probabilities kept fp32 through P.V)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tiny", action="store_true",
                     help="a small model and sizes (a rehearsal on the CPU)")
     args = ap.parse_args(argv)
-    if args.pallas:
-        raise SystemExit(NOT_PORTED)
     device = resolve_device(args.device)     # no card: raise before any work
     dist_params = {"device": args.device}
     formed = parallel.maybe_initialize_distributed(dist_params)
@@ -879,9 +880,11 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
     size = SIZES["tiny" if args.tiny else "full"]
     cfg = tiny_config() if args.tiny else CRCTModelConfig()
     cfg.dtype = "bfloat16"
+    cfg.use_pallas_attention = args.pallas
     world = parallel.world_size()
 
-    aux = _Aux(attention_path="cuda_k1_k2", n_chips=world,
+    aux = _Aux(attention_path="cuda_k1_k2_"
+               + (PALLAS if args.pallas else ROUND_PROBS), n_chips=world,
                **card_info(device))
     peaks = None
     if device.type == "cuda":

@@ -31,10 +31,6 @@ from crct_tpu_torch.config import read_command_line
 from crct_tpu_torch.serve import make_server
 from crct_tpu_torch.utils.device import params_device
 
-# flags of the JAX server that would change what the port serves
-NOT_PORTED = ("pallas",)
-
-
 def serving_devices(params):
     """The device of ``-device`` / ``-cuda_num``, or with ``-mesh_shape N``
     the first N cards (N replicas on the CPU with ``-device cpu``)."""
@@ -52,10 +48,6 @@ def serving_devices(params):
 
 def main(argv=None):
     params = read_command_line(argv)
-    for flag in NOT_PORTED:
-        if params.get(flag):
-            raise SystemExit(f"-{flag} is not yet ported to the PyTorch "
-                             f"server")
     if params.get('serve_no_dataset') and \
             not params.get('serve_detector_weights'):
         raise SystemExit("-serve_no_dataset needs -serve_detector_weights: "

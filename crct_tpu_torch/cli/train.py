@@ -43,10 +43,6 @@ from crct_tpu_torch.train.train_loop import _maybe_tensorboard, run_training
 from crct_tpu_torch.utils.device import params_device
 from crct_tpu_torch.utils.logging import log_line
 
-# flags of the JAX trainer whose paths the port does not have
-NOT_PORTED = ("pallas",)
-
-
 def in_train_eval(trainer, dataset, epoch_id):
     """<=500-sample validation eval each epoch (reference train.py:294-338),
     on the training model (scored in eval mode in its compute dtype). Each
@@ -101,10 +97,6 @@ def _tb_eval_scalars(trainer, params, total, epoch_id):
 
 def main(argv=None):
     params = read_command_line(argv)
-    for flag in NOT_PORTED:
-        if params.get(flag):
-            raise SystemExit(f"-{flag} is not yet ported to the PyTorch "
-                             f"trainer")
     parallel.maybe_initialize_distributed(params)
     if params.get("mesh_shape") and \
             int(params["mesh_shape"]) != parallel.world_size():

@@ -85,6 +85,10 @@ class CRCTModelConfig:
     layer_norm_eps: float = 1e-12
     # compute dtype: "float32" | "bfloat16" (no reference equivalent)
     dtype: str = "float32"
+    # the attention numerics of JAX's -pallas path (probabilities fp32
+    # through P.V) instead of its default XLA path's (rounded to the
+    # compute dtype first); the same function in fp32 (ops/attention.py)
+    use_pallas_attention: bool = False
     # recompute each encoder block in the backward instead of keeping its
     # activations (torch.utils.checkpoint; JAX nn.remat)
     remat: bool = False
@@ -196,10 +200,10 @@ def read_command_line(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                         help='WordPiece vocab.txt (bert-base-uncased layout)')
     parser.add_argument('-bf16', action='store_true',
                         help='bfloat16 activations')
-    # a flag of the JAX package that the port accepts and refuses
     parser.add_argument('-pallas', action='store_true',
-                        help='not ported: the CUDA attention kernel always '
-                             'runs on the card')
+                        help="the attention numerics of the JAX package's "
+                             "Pallas path (bf16 probabilities kept fp32 "
+                             "through P.V); default: its XLA path's")
     parser.add_argument('-mesh_shape', type=str, default='',
                         help='cli.train: must equal the world size; '
                              'cli.serve: serve over the first N cards')

@@ -8,7 +8,12 @@
 //   dv = (P * keep)^T g ;  dP = (g v^T) * keep ;
 //   ds = P * (dP - delta) ;  dq = ds k * scale ;  dk = ds^T q * scale
 // with fp32 scores, probabilities and sums, stored in the input dtype (fp32
-// or bf16). It makes one pass and no statistics pass: P = exp(s - lse) from
+// or bf16). With round_p (bf16 only) it is the VJP of the JAX package's
+// default XLA path (crct_tpu/models/layers.py:61-64): dv from P rounded to
+// bf16 (the kept ones divided in bf16 by bf16(1 - rate)), and
+// dP = g v^T rounded to bf16, the kept ones divided in bf16 by
+// bf16(1 - rate), before the fp32 softmax backward. It makes one pass and no
+// statistics pass: P = exp(s - lse) from
 // the rows' log-sum-exp that the forward kernel wrote. Where the keys fit
 // one key tile (Lk <= 128: every flagship shape), delta_i = sum_j dP_ij P_ij
 // is summed in that pass, over each warp's keys and then over the warps in
@@ -50,7 +55,8 @@
 //      key tile, dq's partial sums of the earlier tiles wait in an fp32
 //      scratch that only this block touches.
 // Every product is an mma.sync: bf16 m16n8k16 for bf16 inputs (P and dS
-// split into bf16 hi + lo, G's, Q's and K's fragments by ldmatrix.trans),
+// split into bf16 hi + lo, or with round_p P bf16 in one product; G's, Q's
+// and K's fragments by ldmatrix.trans),
 // 3xTF32 m16n8k8 for fp32 (attention_common.cuh). For bf16 inputs
 // registers are capped for two blocks an SM, so one block's loads overlap
 // another's products.
@@ -99,7 +105,7 @@ Layout layout(int Lq, int Lk, int D) {
   return {W, BQ, smem_bytes<T>(W, BQ, Lq, Lk, D)};
 }
 
-template <typename T, int DT>
+template <typename T, int DT, bool ROUND>
 __global__ void __launch_bounds__(256, sizeof(T) == 2 ? 2 : 1)
 attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
@@ -108,8 +114,9 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dk, T* __restrict__ dv,
                      float* __restrict__ dq_acc, int H, int Lq, int Lk, int D,
                      int Lm, float scale, float rate, float keep_scale,
-                     uint32_t seed, int hb, int BQ, int vec) {
+                     float keep_rcp, uint32_t seed, int hb, int BQ, int vec) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  static_assert(!(ROUND && SPLIT), "the rounding mode is bf16's");
   constexpr int Dp = 8 * DT;
   constexpr int ld = row_stride<T>(Dp);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -242,7 +249,9 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               }
             }
           }
-          // st <- P, dpt <- P * dP * keep, and the keep bits
+          // st <- P, dpt <- P * dP * keep (ROUND: P times dP rounded to
+          // bf16, the kept ones divided in bf16 by bf16(1 - rate)), and the
+          // keep bits
 #pragma unroll
           for (int nt = 0; nt < kChunk / 8; ++nt) {
 #pragma unroll
@@ -259,7 +268,12 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 p = exp2f(sc - l2[nt][c & 1]);
                 const bool keep =
                     !dropout || drop.keep(i, j, rate, keep_scale) != 0.f;
-                pdp = keep ? p * (dropout ? dpt[nt][c] * keep_scale : dpt[nt][c]) : 0.f;
+                if constexpr (ROUND) {
+                  const float dp = round_bf16(dpt[nt][c]);
+                  pdp = keep ? p * (dropout ? round_bf16(dp * keep_rcp) : dp) : 0.f;
+                } else {
+                  pdp = keep ? p * (dropout ? dpt[nt][c] * keep_scale : dpt[nt][c]) : 0.f;
+                }
                 kept |= (uint32_t)keep << (4 * nt + c);
               }
               st[nt][c] = p;
@@ -308,7 +322,9 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
         if (has_keys) {
-          // st <- (P * keep), dpt <- dS = P * (dP * keep - delta)
+          // st <- (P * keep) (ROUND: P rounded to bf16, the kept ones
+          // divided in bf16 by bf16(1 - rate)), dpt <- dS = P * (dP * keep -
+          // delta)
 #pragma unroll
           for (int nt = 0; nt < kChunk / 8; ++nt) {
 #pragma unroll
@@ -318,7 +334,14 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const float delta = dl[nt][c & 1];
               const float p = st[nt][c];
               const float ds = dpt[nt][c] - p * delta;
-              st[nt][c] = (kept >> (4 * nt + c)) & 1u ? (dropout ? p * keep_scale : p) : 0.f;
+              if constexpr (ROUND) {
+                const float pb = round_bf16(p);
+                st[nt][c] = (kept >> (4 * nt + c)) & 1u
+                                ? (dropout ? round_bf16(pb * keep_rcp) : pb)
+                                : 0.f;
+              } else {
+                st[nt][c] = (kept >> (4 * nt + c)) & 1u ? (dropout ? p * keep_scale : p) : 0.f;
+              }
               dpt[nt][c] = ds;
               if (ql < BQ) sdS[ql * ldS + kl] = ds;
             }
@@ -350,13 +373,16 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               }
             }
           } else {
-            // (P * keep)^T and dS^T in bf16 hi + lo; G's and Q's fragments
-            // by ldmatrix.trans
+            // (P * keep)^T (ROUND: bf16 already, no low part) and dS^T in
+            // bf16 hi + lo; G's and Q's fragments by ldmatrix.trans
             Frag16A ph[kChunk / 16], pl[kChunk / 16], dh[kChunk / 16], dl[kChunk / 16];
 #pragma unroll
             for (int kk = 0; kk < kChunk / 16; ++kk) {
               if (2 * kk < NT) {
-                a16_from_c(st[2 * kk], st[2 * kk + 1], ph[kk], pl[kk]);
+                if constexpr (ROUND)
+                  ph[kk] = a16_from_c_bf16(st[2 * kk], st[2 * kk + 1]);
+                else
+                  a16_from_c(st[2 * kk], st[2 * kk + 1], ph[kk], pl[kk]);
                 a16_from_c(dpt[2 * kk], dpt[2 * kk + 1], dh[kk], dl[kk]);
               }
             }
@@ -369,8 +395,13 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 if (2 * kk < NT) {
                   Frag16B b0, b1;
                   load_b16_trans(sG, ld, c0 + 16 * kk, 8 * dt, lane, b0, b1);
-                  mma_bf16x2(tv0, ph[kk], pl[kk], b0);
-                  mma_bf16x2(tv1, ph[kk], pl[kk], b1);
+                  if constexpr (ROUND) {
+                    mma_bf16(tv0, ph[kk], b0);
+                    mma_bf16(tv1, ph[kk], b1);
+                  } else {
+                    mma_bf16x2(tv0, ph[kk], pl[kk], b0);
+                    mma_bf16x2(tv1, ph[kk], pl[kk], b1);
+                  }
                   load_b16_trans(sQ, ld, c0 + 16 * kk, 8 * dt, lane, b0, b1);
                   mma_bf16x2(tk0, dh[kk], dl[kk], b0);
                   mma_bf16x2(tk1, dh[kk], dl[kk], b1);
@@ -478,18 +509,18 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DT>
+template <typename T, int DT, bool ROUND>
 const void* kernel_of() {
-  return (const void*)attention_bwd_kernel<T, DT>;
+  return (const void*)attention_bwd_kernel<T, DT, ROUND>;
 }
 
-template <typename T>
+template <typename T, bool ROUND>
 const void* kernel_for(int D) {
   switch (head_tiles(D)) {
-    case 4: return kernel_of<T, 4>();
-    case 6: return kernel_of<T, 6>();
-    case 8: return kernel_of<T, 8>();
-    default: return kernel_of<T, 16>();
+    case 4: return kernel_of<T, 4, ROUND>();
+    case 6: return kernel_of<T, 6, ROUND>();
+    case 8: return kernel_of<T, 8, ROUND>();
+    default: return kernel_of<T, 16, ROUND>();
   }
 }
 
@@ -513,15 +544,15 @@ cudaError_t raise_smem_limit(const void* fn) {
   return err;
 }
 
-template <typename T>
+template <typename T, bool ROUND>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* g, const void* o, const void* lse, void* dq, void* dk,
            void* dv, void* dq_acc, int B, int H, int Lq, int Lk, int D, int Lm,
-           float scale, float rate, float keep_scale, int seed, int hb,
+           float scale, float rate, float keep_scale, float keep_rcp, int seed, int hb,
            cudaStream_t stream) {
   const Layout l = layout<T>(Lq, Lk, D);
   if (Lk > 16 * l.W && dq_acc == nullptr) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for<T>(D);
+  const void* fn = kernel_for<T, ROUND>(D);
   cudaError_t err = raise_smem_limit(fn);
   if (err != cudaSuccess) return (int)err;
   int vec = (D * sizeof(T)) % 16 == 0 &&
@@ -531,8 +562,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   uint32_t useed = (uint32_t)seed;
   int BQ = l.BQ;
   void* args[] = {&q, &k, &v, &mask, &g, &o, &lse, &dq, &dk, &dv, &dq_acc,
-                  &H, &Lq, &Lk, &D, &Lm, &scale, &rate, &keep_scale, &useed,
-                  &hb, &BQ, &vec};
+                  &H, &Lq, &Lk, &D, &Lm, &scale, &rate, &keep_scale, &keep_rcp,
+                  &useed, &hb, &BQ, &vec};
   err = cudaLaunchKernel(fn, dim3(B * H), dim3(32 * l.W), args, l.smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -544,25 +575,34 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 // [B,H,Lq,D], k/v/dk/dv [B,H,Lk,D] in that dtype (o the forward's output),
 // mask [B,1,Lm,Lk] float32 with Lm in {1, Lq}, lse float32 [B,H,Lq] from the
 // forward kernel, dq_acc a float32 scratch of B*H*Lq*D when Lk exceeds
-// attention_bwd_key_tile(Lq, Lk, D, dtype), else ignored (may be null). Returns
-// the CUDA error code of the launch (0 = launched).
+// attention_bwd_key_tile(Lq, Lk, D, dtype), else ignored (may be null).
+// keep_scale is the fp32 1 / (1 - rate), keep_rcp the fp32
+// 1 / bf16(1 - rate); round_p (bf16 only: in fp32 the two modes are one
+// function) takes the VJP of the JAX default path. Returns the CUDA error
+// code of the launch (0 = launched).
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* mask, const void* g, const void* o,
                              const void* lse, void* dq, void* dk, void* dv,
                              void* dq_acc, int dtype, int B, int H, int Lq,
                              int Lk, int D, int Lm, float scale, float rate,
-                             float keep_scale, int seed, int hb, void* stream) {
+                             float keep_scale, float keep_rcp, int seed, int hb,
+                             int round_p, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > kMaxD || hb < 1 ||
       H % hb != 0 || (Lm != 1 && Lm != Lq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B, H, Lq,
-                         Lk, D, Lm, scale, rate, keep_scale, seed, hb, s);
+    return launch<float, false>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B, H, Lq,
+                                Lk, D, Lm, scale, rate, keep_scale, keep_rcp, seed, hb,
+                                s);
+  if (dtype == 1 && round_p)
+    return launch<__nv_bfloat16, true>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B,
+                                       H, Lq, Lk, D, Lm, scale, rate, keep_scale,
+                                       keep_rcp, seed, hb, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B,
-                                 H, Lq, Lk, D, Lm, scale, rate, keep_scale, seed,
-                                 hb, s);
+    return launch<__nv_bfloat16, false>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B,
+                                        H, Lq, Lk, D, Lm, scale, rate, keep_scale,
+                                        keep_rcp, seed, hb, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -591,7 +631,8 @@ extern "C" int attention_bwd_smem(int Lq, int Lk, int D, int dtype) {
 extern "C" int attention_bwd_blocks_per_sm(int Lq, int Lk, int D, int dtype) {
   const int smem = attention_bwd_smem(Lq, Lk, D, dtype);
   if (smem == 0 || (dtype != 0 && dtype != 1)) return -(int)cudaErrorInvalidValue;
-  const void* fn = dtype == 0 ? kernel_for<float>(D) : kernel_for<__nv_bfloat16>(D);
+  const void* fn =
+      dtype == 0 ? kernel_for<float, false>(D) : kernel_for<__nv_bfloat16, false>(D);
   const int W = attention_bwd_key_tile(Lq, Lk, D, dtype) / 16;
   cudaError_t err = raise_smem_limit(fn);
   if (err != cudaSuccess) return -(int)err;

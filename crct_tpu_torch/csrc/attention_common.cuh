@@ -22,7 +22,9 @@
 // bf16 m16n8k16 with fp32 accumulators: inputs times inputs exactly, and
 // the fp32 probabilities and score gradients split into a bf16 high and a
 // bf16 low part (two products), which keeps them to about 16 significant
-// bits, finer than TF32's 11.
+// bits, finer than TF32's 11. In the rounding mode (the JAX package's
+// default XLA path) the probabilities are rounded to bf16 instead, and
+// P V and dv take them in one product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -368,6 +370,30 @@ __device__ __forceinline__ void mma_bf16(float c[4], const Frag16A& a, const Fra
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+}
+
+// x rounded to the nearest bf16, as fp32.
+// The rounding mode's dropout divides a bf16 value x in bf16 by
+// c = bf16(1 - rate), as JAX does; the kernels multiply by keep_rcp, the
+// fp32 1 / c, instead. Both x and c have 8 significant bits, so the exact
+// x / c is never halfway between two bf16 values and lies at least 2^-17 of
+// its size from such a point, while x * keep_rcp is within 2^-23 of x / c:
+// round_bf16 gives both the same bits.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// the bf16 pair (x, y), x in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A (16 x 16) in bf16 from the C fragments of columns 0-7 (c0) and 8-15
+// (c1), with no low part: for values that are bf16 already (a rounded P)
+__device__ __forceinline__ Frag16A a16_from_c_bf16(const float c0[4], const float c1[4]) {
+  return {{pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]), pack_bf16(c1[0], c1[1]),
+           pack_bf16(c1[2], c1[3])}};
 }
 
 // c += (hi + lo) b in bf16 (the small term first)

@@ -4,7 +4,10 @@
 // Replaces crct_tpu/ops/attention.py::_fwd_kernel (the Pallas TPU kernel):
 //   out = (softmax(q k^T / sqrt(D) + mask) * keep / (1 - rate)) v
 // with fp32 scores, softmax and accumulators, the output stored in the input
-// dtype (fp32 or bf16), and optionally the rows' log-sum-exp
+// dtype (fp32 or bf16). With round_p (bf16 only) it computes the JAX
+// package's default XLA path instead (crct_tpu/models/layers.py:61-64):
+// P normalised in fp32 and rounded to bf16, the kept ones divided in bf16
+// by bf16(1 - rate), then P v. It writes optionally the rows' log-sum-exp
 // lse = m + log(sum_j exp(s_j - m)) as fp32 [B, H, Lq], which the backward
 // kernel (attention_bwd.cu) takes instead of recomputing the row statistics.
 // The dropout keep mask is the JAX kernel's murmur3 counter hash, bit for
@@ -31,6 +34,13 @@
 // (bf16 hi + lo against V's fragments from ldmatrix.trans for bf16 inputs,
 // 3xTF32 for fp32). Registers are capped for two blocks of 8 warps
 // an SM, so one block's loads overlap another's products.
+//
+// round_p: the online softmax multiplies the unnormalised exp(s - m) into V
+// and divides at the end, but the JAX path rounds the normalised P. So this
+// instance takes two passes over the key tiles, the first for the rows' max
+// and sum only (S = Q K^T, no V), the second for P = exp(s - m) / sum,
+// rounded, and O += P V in one bf16 product (no low part). With one key tile
+// (Lk <= 128, every flagship shape) K and V are staged once for both passes.
 
 #include "attention_common.cuh"
 
@@ -43,14 +53,16 @@ constexpr int kSub = 8 * kFlush;  // keys per step of the online softmax
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T, int DT>
+template <typename T, int DT, bool ROUND>
 __global__ void __launch_bounds__(256, 2)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
                      int Lk, int D, int Lm, float scale, float rate,
-                     float keep_scale, uint32_t seed, int hb, int bk, int vec) {
+                     float keep_scale, float keep_rcp, uint32_t seed, int hb, int bk,
+                     int vec) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  static_assert(!(ROUND && SPLIT), "the rounding mode is bf16's");
   constexpr int Dp = 8 * DT;
   constexpr int ld = row_stride<T>(Dp);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -83,18 +95,31 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l[2] = {0.f, 0.f};
+  float inv[2] = {1.f, 1.f};  // ROUND: 1 / the rows' sums, after the first pass
   float o[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt)
     o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
-  for (int kt0 = 0; kt0 < Lk; kt0 += bk) {
+  const int ntiles = (Lk + bk - 1) / bk;
+  for (int it = 0; it < (ROUND ? 2 : 1) * ntiles; ++it) {
+    const bool stats = ROUND && it < ntiles;  // the first pass of ROUND
+    const int kt0 = (it % ntiles) * bk;
     const int nk = min(bk, Lk - kt0);
-    if (kt0 > 0) __syncthreads();          // the last tile is consumed
-    stage_tile(sK, kh + (size_t)kt0 * D, nk, bk, D, Dp, ld, vec);
-    stage_tile(sV, vh + (size_t)kt0 * D, nk, bk, D, Dp, ld, vec);
-    cp_async_wait_all();
-    __syncthreads();
+    if (ROUND && it == ntiles) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] = quad_sum(l[i]);
+        inv[i] = 1.f / l[i];
+      }
+    }
+    if (it == 0 || ntiles > 1) {
+      if (it > 0) __syncthreads();         // the last tile is consumed
+      stage_tile(sK, kh + (size_t)kt0 * D, nk, bk, D, Dp, ld, vec);
+      stage_tile(sV, vh + (size_t)kt0 * D, nk, bk, D, Dp, ld, vec);
+      cp_async_wait_all();
+      __syncthreads();
+    }
 
     // the staged tile in sub-tiles of kSub keys (fewer live registers)
     for (int sub = 0; sub < nk; sub += kSub) {
@@ -140,29 +165,49 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           mx[1] = fmaxf(mx[1], s[nt][2 + e]);
         }
       }
-      float corr[2];
+      if (!ROUND || stats) {
+        float corr[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float mnew = fmaxf(m[i], quad_max(mx[i]));
-        corr[i] = exp2f(m[i] - mnew);      // 0 on the first sub-tile
-        m[i] = mnew;
-        l[i] *= corr[i];
+        for (int i = 0; i < 2; ++i) {
+          const float mnew = fmaxf(m[i], quad_max(mx[i]));
+          corr[i] = exp2f(m[i] - mnew);    // 0 on the first sub-tile
+          m[i] = mnew;
+          l[i] *= corr[i];
+        }
+        if constexpr (!ROUND) {
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) o[dt][c] *= corr[c >> 1];
+        }
       }
+      if (stats) {
+        // the first pass: the rows' running sums alone
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
+        for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) o[dt][c] *= corr[c >> 1];
+          for (int c = 0; c < 4; ++c) l[c >> 1] += exp2f(s[nt][c] - m[c >> 1]);
+        continue;
+      }
 
-      // probabilities (unnormalised), their sum, then the keep mask
+      // probabilities, then the keep mask: ROUND normalised and rounded to
+      // bf16, the kept ones divided in bf16 by bf16(1 - rate); else
+      // unnormalised (their sum kept) times keep / (1 - rate)
 #pragma unroll
       for (int nt = 0; nt < kSub / 8; ++nt) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
+          const int j = kt0 + sub + 8 * nt + 2 * tq + (c & 1);
           float p = exp2f(s[nt][c] - m[c >> 1]);
-          l[c >> 1] += p;
-          if (dropout)
-            p *= drop.keep(row[c >> 1], kt0 + sub + 8 * nt + 2 * tq + (c & 1), rate,
-                           keep_scale);
+          if constexpr (ROUND) {
+            p = round_bf16(p * inv[c >> 1]);
+            if (dropout)
+              p = drop.keep(row[c >> 1], j, rate, keep_scale) != 0.f ? round_bf16(p * keep_rcp)
+                                                                    : 0.f;
+          } else {
+            l[c >> 1] += p;
+            if (dropout) p *= drop.keep(row[c >> 1], j, rate, keep_scale);
+          }
           s[nt][c] = p;
         }
       }
@@ -184,6 +229,33 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               if (nt < NT) mma<SPLIT>(t, pa[nt], load_b_perm<SPLIT>(sVs, ld, 8 * nt, 8 * dt, lane));
 #pragma unroll
             for (int c = 0; c < 4; ++c) o[dt][c] += t[c];
+          }
+        }
+      } else if constexpr (ROUND) {
+        // P, bf16 already, in one product; V's fragments by ldmatrix.trans
+        Frag16A pb[kSub / 16];
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk)
+          if (2 * kk < NT) pb[kk] = a16_from_c_bf16(s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dt = 0; dt < DT; dt += 2) {
+#pragma unroll
+          for (int kk0 = 0; kk0 < kSub / 16; kk0 += kFlush / 2) {
+            float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int kk = kk0; kk < kk0 + kFlush / 2; ++kk) {
+              if (2 * kk < NT) {
+                Frag16B b0, b1;
+                load_b16_trans(sVs, ld, 16 * kk, 8 * dt, lane, b0, b1);
+                mma_bf16(t0, pb[kk], b0);
+                mma_bf16(t1, pb[kk], b1);
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              o[dt][c] += t0[c];
+              o[dt + 1][c] += t1[c];
+            }
           }
         }
       } else {
@@ -219,9 +291,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] = quad_sum(l[i]);
+    if constexpr (!ROUND) l[i] = quad_sum(l[i]);   // ROUND: summed already
     if (row[i] >= Lq) continue;
-    const float inv = 1.f / l[i];
+    // ROUND: P was normalised before P V
+    const float inv = ROUND ? 1.f : 1.f / l[i];
     T* orow = out + ((size_t)bh * Lq + row[i]) * D;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
@@ -245,10 +318,11 @@ size_t smem_bytes(int W, int bk, int D) {
   return region<T>((size_t)16 * W * ld) + region<T>((size_t)2 * bk * ld);
 }
 
-template <typename T, int DT>
+template <typename T, int DT, bool ROUND>
 int launch_dt(const T* q, const T* k, const T* v, const float* mask, T* out,
               float* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
-              float rate, float keep_scale, int seed, int hb, cudaStream_t stream) {
+              float rate, float keep_scale, float keep_rcp, int seed, int hb,
+              cudaStream_t stream) {
   const int W = warps_for(Lq);
   const int bk = key_tile(Lk);
   const size_t smem = smem_bytes<T>(W, bk, D);
@@ -260,7 +334,7 @@ int launch_dt(const T* q, const T* k, const T* v, const float* mask, T* out,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !(raised & (1ull << dev))) {
-    err = cudaFuncSetAttribute(attention_fwd_kernel<T, DT>,
+    err = cudaFuncSetAttribute(attention_fwd_kernel<T, DT, ROUND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) raised |= 1ull << dev;
@@ -268,22 +342,22 @@ int launch_dt(const T* q, const T* k, const T* v, const float* mask, T* out,
   const int vec = (D * sizeof(T)) % 16 == 0 &&
                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const dim3 grid(B * H, (Lq + 16 * W - 1) / (16 * W));
-  attention_fwd_kernel<T, DT><<<grid, 32 * W, smem, stream>>>(
-      q, k, v, mask, out, lse, H, Lq, Lk, D, Lm, scale, rate, keep_scale,
+  attention_fwd_kernel<T, DT, ROUND><<<grid, 32 * W, smem, stream>>>(
+      q, k, v, mask, out, lse, H, Lq, Lk, D, Lm, scale, rate, keep_scale, keep_rcp,
       (uint32_t)seed, hb, bk, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ROUND>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, void* lse, int B, int H, int Lq, int Lk, int D, int Lm,
-           float scale, float rate, float keep_scale, int seed, int hb,
+           float scale, float rate, float keep_scale, float keep_rcp, int seed, int hb,
            cudaStream_t stream) {
-#define CRCT_FWD(DT)                                                              \
-  return launch_dt<T, DT>(static_cast<const T*>(q), static_cast<const T*>(k),     \
-                          static_cast<const T*>(v), static_cast<const float*>(mask), \
-                          static_cast<T*>(out), static_cast<float*>(lse), B, H, Lq, \
-                          Lk, D, Lm, scale, rate, keep_scale, seed, hb, stream)
+#define CRCT_FWD(DT)                                                               \
+  return launch_dt<T, DT, ROUND>(                                                  \
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), \
+      static_cast<const float*>(mask), static_cast<T*>(out), static_cast<float*>(lse), \
+      B, H, Lq, Lk, D, Lm, scale, rate, keep_scale, keep_rcp, seed, hb, stream)
   switch (head_tiles(D)) {
     case 4: CRCT_FWD(4);
     case 6: CRCT_FWD(6);
@@ -297,22 +371,27 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q/out [B,H,Lq,D],
 // k/v [B,H,Lk,D] in that dtype, mask [B,1,Lm,Lk] float32 with Lm in {1, Lq},
-// lse float32 [B,H,Lq] or null (not written). Returns the CUDA error code of
-// the launch (0 = launched).
+// lse float32 [B,H,Lq] or null (not written). keep_scale is the fp32
+// 1 / (1 - rate), keep_rcp the fp32 1 / bf16(1 - rate); round_p (bf16
+// only: in fp32 the two modes are one function) rounds P as the JAX default
+// path does. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, void* lse, int dtype,
                              int B, int H, int Lq, int Lk, int D, int Lm,
-                             float scale, float rate, float keep_scale, int seed,
-                             int hb, void* stream) {
+                             float scale, float rate, float keep_scale, float keep_rcp,
+                             int seed, int hb, int round_p, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > kMaxD || hb < 1 ||
       H % hb != 0 || (Lm != 1 && Lm != Lq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale,
-                         rate, keep_scale, seed, hb, s);
+    return launch<float, false>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale,
+                                rate, keep_scale, keep_rcp, seed, hb, s);
+  if (dtype == 1 && round_p)
+    return launch<__nv_bfloat16, true>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
+                                       scale, rate, keep_scale, keep_rcp, seed, hb, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
-                                 scale, rate, keep_scale, seed, hb, s);
+    return launch<__nv_bfloat16, false>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
+                                        scale, rate, keep_scale, keep_rcp, seed, hb, s);
   return (int)cudaErrorInvalidValue;
 }

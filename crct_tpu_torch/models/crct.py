@@ -272,6 +272,8 @@ def build_model(params: Dict[str, Any],
             config = CRCTModelConfig()
     if params.get("bf16"):
         config.dtype = "bfloat16"
+    if params.get("pallas"):
+        config.use_pallas_attention = True
     model = CRCTModel(config, categories=params.get("categories", 228) or 228,
                       dataset=params.get("dataset", "plotqa"),
                       ce_reg=params.get("CE_REG", False),

@@ -10,7 +10,10 @@ sit under those names in the state dict.
 
 The attention core is :func:`crct_tpu_torch.ops.attention.fused_attention`:
 the CUDA kernels on the card (forward and backward), their plain versions
-on the CPU. Masks are additive (0 / -10000), [B, 1, 1, L] per stream.
+on the CPU, with the numerics of the JAX package's default XLA path
+(``ROUND_PROBS``) or, with the config's ``use_pallas_attention``, of its
+Pallas path (``PALLAS``): each attention layer takes the ``mode``. Masks
+are additive (0 / -10000), [B, 1, 1, L] per stream.
 
 Dropout runs only in training mode and only when the forward is handed a
 :class:`DropoutRNG`: each attention call draws its own int32 seed for the
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crct_tpu_torch.ops.attention import fused_attention
+from crct_tpu_torch.ops.attention import ROUND_PROBS, fused_attention
 
 MASK_VALUE = -10000.0
 LAYER_NORM_EPS = 1e-12
@@ -194,10 +197,11 @@ class SelfAttention(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  eps: float = LAYER_NORM_EPS, attn_dropout: float = 0.0,
-                 hidden_dropout: float = 0.0):
+                 hidden_dropout: float = 0.0, mode: str = ROUND_PROBS):
         super().__init__()
         self.num_heads = num_heads
         self.attn_dropout = attn_dropout
+        self.mode = mode
         self.self = _QKV(hidden_size)
         self.output = Output(hidden_size, hidden_size, eps, hidden_dropout)
 
@@ -208,7 +212,8 @@ class SelfAttention(nn.Module):
                               split_heads(self.self.key(x), H),
                               split_heads(self.self.value(x), H),
                               additive_mask,
-                              *attention_seed(self, self.attn_dropout, rng))
+                              *attention_seed(self, self.attn_dropout, rng),
+                              mode=self.mode)
         return self.output(merge_heads(ctx), x, rng)
 
 
@@ -218,10 +223,10 @@ class TransformerLayer(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, hidden_act: str,
                  eps: float = LAYER_NORM_EPS, attn_dropout: float = 0.0,
-                 hidden_dropout: float = 0.0):
+                 hidden_dropout: float = 0.0, mode: str = ROUND_PROBS):
         super().__init__()
         self.attention = SelfAttention(hidden_size, num_heads, eps,
-                                       attn_dropout, hidden_dropout)
+                                       attn_dropout, hidden_dropout, mode)
         self.intermediate = Intermediate(hidden_size, intermediate_size,
                                          hidden_act)
         self.output = Output(intermediate_size, hidden_size, eps,
@@ -241,9 +246,11 @@ class BiAttention(nn.Module):
 
     def __init__(self, v_hidden_size: int, t_hidden_size: int,
                  bi_hidden_size: int, num_heads: int,
-                 v_attn_dropout: float = 0.0, t_attn_dropout: float = 0.0):
+                 v_attn_dropout: float = 0.0, t_attn_dropout: float = 0.0,
+                 mode: str = ROUND_PROBS):
         super().__init__()
         self.num_heads = num_heads
+        self.mode = mode
         self.v_attn_dropout = v_attn_dropout
         self.t_attn_dropout = t_attn_dropout
         self.query1 = nn.Linear(v_hidden_size, bi_hidden_size)
@@ -258,11 +265,13 @@ class BiAttention(nn.Module):
         ctx1 = fused_attention(split_heads(self.query2(t_input), H),
                                split_heads(self.key1(v_input), H),
                                split_heads(self.value1(v_input), H), v_mask,
-                               *attention_seed(self, self.v_attn_dropout, rng))
+                               *attention_seed(self, self.v_attn_dropout, rng),
+                               mode=self.mode)
         ctx2 = fused_attention(split_heads(self.query1(v_input), H),
                                split_heads(self.key2(t_input), H),
                                split_heads(self.value2(t_input), H), t_mask,
-                               *attention_seed(self, self.t_attn_dropout, rng))
+                               *attention_seed(self, self.t_attn_dropout, rng),
+                               mode=self.mode)
         return merge_heads(ctx1), merge_heads(ctx2)
 
 
@@ -293,13 +302,13 @@ class ConnectionLayer(nn.Module):
                  v_hidden_act: str, t_hidden_act: str,
                  eps: float = LAYER_NORM_EPS, v_attn_dropout: float = 0.0,
                  t_attn_dropout: float = 0.0, v_hidden_dropout: float = 0.0,
-                 t_hidden_dropout: float = 0.0):
+                 t_hidden_dropout: float = 0.0, mode: str = ROUND_PROBS):
         super().__init__()
         self.v_hidden_dropout = v_hidden_dropout
         self.t_hidden_dropout = t_hidden_dropout
         self.biattention = BiAttention(v_hidden_size, t_hidden_size,
                                        bi_hidden_size, bi_num_heads,
-                                       v_attn_dropout, t_attn_dropout)
+                                       v_attn_dropout, t_attn_dropout, mode)
         self.biOutput = BiOutput(v_hidden_size, t_hidden_size, bi_hidden_size,
                                  eps)
         self.v_intermediate = Intermediate(v_hidden_size, v_intermediate_size,

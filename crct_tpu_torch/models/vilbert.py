@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from crct_tpu_torch.config import CRCTModelConfig
 from crct_tpu_torch.models.layers import (ConnectionLayer, TransformerLayer,
                                           dropout, extended_attention_mask)
+from crct_tpu_torch.ops.attention import PALLAS, ROUND_PROBS
 
 
 class TextEmbeddings(nn.Module):
@@ -112,23 +113,26 @@ class ImageEmbeddings(nn.Module):
 class TwoStreamEncoder(nn.Module):
     """Interleaved v/t self-attention + co-attention schedule
     (reference BertEncoder, vilbert.py:791-946): for plotqa t0..t5, then
-    [c0, v0, t6, c1, v1, t7, ..., c5], then v5, t11."""
+    [c0, v0, t6, c1, v1, t7, ..., c5], then v5, t11. Without
+    ``with_coattention`` it builds no co-attention layers, as the JAX
+    encoder, which never calls them then, has no parameters for them."""
 
     def __init__(self, cfg: CRCTModelConfig):
         super().__init__()
         self.config = cfg
         eps = cfg.layer_norm_eps
+        mode = PALLAS if cfg.use_pallas_attention else ROUND_PROBS
         self.layer = nn.ModuleList(
             TransformerLayer(cfg.hidden_size, cfg.num_attention_heads,
                              cfg.intermediate_size, cfg.hidden_act, eps,
                              cfg.attention_probs_dropout_prob,
-                             cfg.hidden_dropout_prob)
+                             cfg.hidden_dropout_prob, mode)
             for _ in range(cfg.num_hidden_layers))
         self.v_layer = nn.ModuleList(
             TransformerLayer(cfg.v_hidden_size, cfg.v_num_attention_heads,
                              cfg.v_intermediate_size, cfg.v_hidden_act, eps,
                              cfg.v_attention_probs_dropout_prob,
-                             cfg.v_hidden_dropout_prob)
+                             cfg.v_hidden_dropout_prob, mode)
             for _ in range(cfg.v_num_hidden_layers))
         self.c_layer = nn.ModuleList(
             ConnectionLayer(cfg.v_hidden_size, cfg.hidden_size,
@@ -138,8 +142,9 @@ class TwoStreamEncoder(nn.Module):
                             cfg.v_attention_probs_dropout_prob,
                             cfg.attention_probs_dropout_prob,
                             cfg.v_hidden_dropout_prob,
-                            cfg.hidden_dropout_prob)
-            for _ in range(len(cfg.v_biattention_id)))
+                            cfg.hidden_dropout_prob, mode)
+            for _ in range(len(cfg.v_biattention_id)
+                           if cfg.with_coattention else 0))
 
     def _block(self, layer: nn.Module, *args, rng=None):
         """``layer(*args, rng)``; with ``remat`` while gradients are on, in

@@ -1,14 +1,30 @@
 """Fused multi-head attention, forward and backward: CUDA kernels and their
 plain versions.
 
-``fused_attention`` is the port of ``crct_tpu/ops/attention.py`` (the Pallas
-kernels ``_fwd_kernel`` and ``_bwd_kernel``, reached through
-``fused_attention`` / ``_attention`` and its ``custom_vjp``). It computes
+``fused_attention`` is the attention core of both of the JAX package's
+attention paths (``crct_tpu/models/layers.py::dot_product_attention``): the
+Pallas kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
+``crct_tpu/ops/attention.py`` (``-pallas``, reached through
+``fused_attention`` / ``_attention`` and its ``custom_vjp``) and the default
+XLA path. It computes
 
     out = (softmax(q k^T / sqrt(D) + mask) * keep / (1 - rate)) v
 
 with fp32 scores and a max-subtracted fp32 softmax, storing the output in
-the input dtype. Its gradient recomputes the probabilities and regenerates
+the input dtype. ``mode`` picks the numerics of one of the two paths; they
+differ only for bf16 inputs:
+
+- ``ROUND_PROBS`` (the default, JAX's XLA path, layers.py:61-64): the
+  normalized fp32 probabilities are rounded to bf16; with dropout the kept
+  ones are divided in bf16 by bf16(1 - rate) (0.8984375 at 0.1, JAX's weak
+  type); out = P V with fp32 sums, rounded to bf16. Its VJP as JAX's: dv
+  from that bf16 P; dP = g v^T rounded to bf16, through the keep and
+  bf16(1 - rate) steps in bf16, then the fp32 softmax backward.
+- ``PALLAS`` (``-pallas``): P stays fp32 through P.V and dv, the keep
+  multiplier is fp32 1/(1 - rate), as in the Pallas kernels.
+
+In fp32 the two are one function (one kernel instance). Its gradient
+recomputes the probabilities and regenerates
 the same keep mask (the ``torch.autograd.Function`` saves q, k, v, the
 mask, the int seed and the rate, never a second draw) and returns dq, dk
 and dv by the formulas of ``_bwd_kernel``. For tensors on the card the
@@ -19,9 +35,11 @@ raises. For tensors on the CPU they run :func:`attention_reference` and
 :func:`attention_bwd_reference`, the same math in plain torch ops.
 
 Dropout reproduces the JAX kernels' murmur3 counter hash bit for bit: with
-the same int seed ``s`` the port equals
+the same int seed ``s`` the port in ``PALLAS`` mode equals
 ``crct_tpu.ops.attention._attention(q, k, v, mask, [[s]], rate, True)`` and
-its VJP.
+its VJP. ``ROUND_PROBS`` mode draws from the same hash; JAX's XLA path
+draws its keep mask from threefry (``jax.random.bernoulli``), so the two
+agree with dropout only given the same mask.
 
 The forward also returns the rows' log-sum-exp (fp32 [B, H, Lq]) when a
 gradient will be taken; the Function saves it with the output, and the
@@ -38,10 +56,13 @@ against 0.011 ms at 989 TFLOP/s: bytes bound it). The backward at B = 80
 does 9.4 GFLOP against ~214 MB in fp32 (0.14 against 0.064 ms) and ~107 MB
 in bf16 (0.010 against 0.032 ms). Both kernels run every product on the
 tensor cores with mma.sync (``csrc/attention_common.cuh``): 3xTF32 for fp32
-inputs, fp32-accurate; bf16 products for bf16 inputs, where the fp32
-probabilities and score gradients enter split into a bf16 high and low part
-(about 16 significant bits: finer than TF32, so the port still keeps P
-fp32-like through P.V as the JAX Pallas path does; ROADMAP.md section 3).
+inputs, fp32-accurate; bf16 products for bf16 inputs, where the score
+gradients, and in ``PALLAS`` mode the probabilities, enter split into a
+bf16 high and low part (about 16 significant bits, finer than TF32, so
+that they stay fp32-like as in the JAX Pallas path). In ``ROUND_PROBS``
+mode P is bf16 and P.V and dv take one bf16 product: K1 then takes two
+passes over the keys, the first for the rows' max and sum, so that it
+rounds the normalized P as JAX does.
 """
 
 from __future__ import annotations
@@ -62,10 +83,14 @@ MAX_KEYS = 1024
 # above it (several key tiles) delta = sum_d g * out
 ONE_PASS_KEYS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the numerics of JAX's two attention paths (see above)
+ROUND_PROBS = "round_probs"
+PALLAS = "pallas"
+MODES = (ROUND_PROBS, PALLAS)
 
 # kernel launches of K1 (forward) and K2 (backward), keyed by (dtype name,
-# H, Lq, Lk, D), e.g. ("bfloat16", 16, 124, 124, 48); bumped only where a
-# kernel is launched, never by the plain versions
+# mode, H, Lq, Lk, D), e.g. ("bfloat16", "round_probs", 16, 124, 124, 48);
+# bumped only where a kernel is launched, never by the plain versions
 _COUNT_LOCK = threading.Lock()
 LAUNCHES: Counter = Counter()
 BWD_LAUNCHES: Counter = Counter()
@@ -125,11 +150,11 @@ def _uniform_hash(seed: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
     return bits.view(torch.float32) - 1.0
 
 
-def keep_mask(shape: Tuple[int, int, int, int], seed: int, rate: float,
-              device) -> torch.Tensor:
-    """[B,H,Lq,Lk] fp32 dropout multipliers (0 or 1/(1-rate)) of the JAX
-    kernel's grid: program (b, h // HB) draws from seed + prog * 1000003 over
-    the iota [HB, Lq, Lk] with axis 0 = h % HB."""
+def _kept(shape: Tuple[int, int, int, int], seed: int, rate: float,
+          device) -> torch.Tensor:
+    """[B,H,Lq,Lk] bool: the JAX kernel's keep draws. Program (b, h // HB)
+    of its grid draws from seed + prog * 1000003 over the iota [HB, Lq, Lk]
+    with axis 0 = h % HB."""
     B, H, Lq, Lk = shape
     hb = _head_block(H)
     b = torch.arange(B, device=device, dtype=torch.int64).view(B, 1, 1, 1)
@@ -139,8 +164,46 @@ def keep_mask(shape: Tuple[int, int, int, int], seed: int, rate: float,
     i1 = torch.arange(Lq, device=device, dtype=torch.int64).view(1, 1, Lq, 1)
     i2 = torch.arange(Lk, device=device, dtype=torch.int64).view(1, 1, 1, Lk)
     u = _uniform_hash(prog_seed, h % hb, i1, i2)
-    scale = np.float32(1.0) / np.float32(1.0 - rate)
-    return (u >= float(np.float32(rate))).to(torch.float32) * float(scale)
+    return u >= float(np.float32(rate))
+
+
+def keep_mask(shape: Tuple[int, int, int, int], seed: int, rate: float,
+              device) -> torch.Tensor:
+    """[B,H,Lq,Lk] fp32 dropout multipliers (0 or 1/(1-rate)) of the JAX
+    kernel's grid (:func:`_kept`)."""
+    return _kept(shape, seed, rate, device).to(torch.float32) \
+        * _keep_scale(rate)
+
+
+def _keep_scale(rate: float) -> float:
+    """The Pallas kernels' keep multiplier, fp32 1 / (1 - rate)."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def _rounds(dtype: torch.dtype, mode: str) -> bool:
+    """Whether ``mode`` rounds P for inputs of ``dtype``: ROUND_PROBS with
+    bf16 inputs (in fp32 the two modes are one function)."""
+    if mode not in MODES:
+        raise ValueError(f"attention mode {mode!r} is not one of {MODES}")
+    return mode == ROUND_PROBS and dtype == torch.bfloat16
+
+
+def keep_divisor(rate: float) -> float:
+    """bf16(1 - rate): what JAX's XLA path divides bf16 probabilities by
+    (``probs * keep / (1.0 - rate)``, a weak-typed Python float)."""
+    return float(torch.tensor(1.0 - rate, dtype=torch.bfloat16))
+
+
+def _round_dropout(x: torch.Tensor, kept: Optional[torch.Tensor],
+                   rate: float) -> torch.Tensor:
+    """``x`` rounded to bf16 and, with dropout, its kept entries divided in
+    bf16 by bf16(1 - rate) and the others 0, as fp32 (JAX's XLA path:
+    layers.py:61-64 forward, and its VJP on dP)."""
+    x = x.to(torch.bfloat16).float()
+    if kept is None:
+        return x
+    return torch.where(kept, (x / keep_divisor(rate)).to(torch.bfloat16)
+                       .float(), 0.0)
 
 
 def _scale(D: int) -> float:
@@ -169,13 +232,17 @@ def _softmax(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         additive_mask: Optional[torch.Tensor],
                         dropout_rate: float = 0.0, seed: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, mode: str = ROUND_PROBS):
     """The forward kernel's plain version: the same arguments as
     :func:`fused_attention` and the same math, in plain torch ops. With
     ``return_lse`` it returns (out, lse), lse the fp32 [B,H,Lq] log-sum-exp
     of the rows' scores, as the kernel writes it."""
     probs, lse = _softmax(_scores(q, k, additive_mask))
-    if dropout_rate > 0.0:
+    if _rounds(q.dtype, mode):
+        kept = (_kept(tuple(probs.shape), seed, dropout_rate, probs.device)
+                if dropout_rate > 0.0 else None)
+        probs = _round_dropout(probs, kept, dropout_rate)
+    elif dropout_rate > 0.0:
         probs = probs * keep_mask(tuple(probs.shape), seed, dropout_rate,
                                   probs.device)
     out = torch.matmul(probs, v.float()).to(q.dtype)
@@ -187,16 +254,19 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                             additive_mask: Optional[torch.Tensor],
                             g: torch.Tensor, dropout_rate: float = 0.0,
                             seed: int = 0, lse: Optional[torch.Tensor] = None,
-                            out: Optional[torch.Tensor] = None
+                            out: Optional[torch.Tensor] = None,
+                            mode: str = ROUND_PROBS
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The backward kernel's plain version (the formulas of the JAX
-    ``_bwd_kernel``): recompute P, regenerate the forward's keep mask from
-    the same seed, and return (dq, dk, dv) for the cotangent ``g`` of the
-    output, in the input dtype. Given the forward's ``lse``, P is
+    ``_bwd_kernel``, and in ROUND_PROBS mode with bf16 inputs the rounding
+    of the XLA path's VJP): recompute P, regenerate the forward's keep mask
+    from the same seed, and return (dq, dk, dv) for the cotangent ``g`` of
+    the output, in the input dtype. Given the forward's ``lse``, P is
     exp(s - lse), as the kernel takes it. Given its output ``out`` and more
     than ONE_PASS_KEYS keys, delta = sum_j dP * P is taken as sum_d g * out,
-    which equals it (out is (P * keep) v), as the kernel does there."""
+    which equals it (out is (P * keep) v) up to rounding, as the kernel
+    does there."""
     scores = _scores(q, k, additive_mask)
     if lse is None:
         probs = _softmax(scores)[0]
@@ -204,8 +274,13 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
         probs = torch.exp(scores - lse.float().unsqueeze(-1))
     gf = g.float()
     dpd = torch.matmul(gf, v.float().transpose(-1, -2))
-    if dropout_rate > 0.0:
-        keep = keep_mask(tuple(probs.shape), seed, dropout_rate, probs.device)
+    kept = (_kept(tuple(probs.shape), seed, dropout_rate, probs.device)
+            if dropout_rate > 0.0 else None)
+    if _rounds(q.dtype, mode):
+        probs_d = _round_dropout(probs, kept, dropout_rate)
+        dp = _round_dropout(dpd, kept, dropout_rate)
+    elif kept is not None:
+        keep = kept.to(torch.float32) * _keep_scale(dropout_rate)
         probs_d, dp = probs * keep, dpd * keep
     else:
         probs_d, dp = probs, dpd
@@ -261,27 +336,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, n_ptrs: int):
     """The C entry of ``csrc/<name>.cu``: ``n_ptrs`` pointers (null where
-    an optional one is None), the dtype and six shape ints, scale, rate and keep scale, seed and head block, and
-    the stream."""
+    an optional one is None), the dtype and six shape ints, scale, rate,
+    keep scale and the keep divisor's reciprocal, seed, head block and
+    whether P is rounded, and the stream."""
     from crct_tpu_torch.ops.build import load
     fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     return fn
 
 
-def _scalars(q: torch.Tensor, dropout_rate: float, seed: int):
-    """scale, rate, keep scale, seed and head block as the kernels take
-    them (fp32 rounding as in the JAX kernels)."""
-    keep_scale = np.float32(1.0) / np.float32(1.0 - dropout_rate)
+def _scalars(q: torch.Tensor, dropout_rate: float, seed: int, mode: str):
+    """scale, rate, keep scale, the keep divisor's fp32 reciprocal (the
+    kernels multiply by it: the same bf16 bits as the division, see
+    csrc/attention_common.cuh), seed, head block and the rounding flag as
+    the kernels take them (fp32 rounding as in the JAX kernels)."""
     return (_scale(q.shape[-1]), float(np.float32(dropout_rate)),
-            float(keep_scale), int(np.int32(seed)), _head_block(q.shape[1]))
+            _keep_scale(dropout_rate),
+            float(np.float32(1.0) / np.float32(keep_divisor(dropout_rate))),
+            int(np.int32(seed)), _head_block(q.shape[1]),
+            int(_rounds(q.dtype, mode)))
 
 
-def _launch(q, k, v, mask, dropout_rate: float, seed: int,
-            with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _launch(q, k, v, mask, dropout_rate: float, seed: int, with_lse: bool,
+            mode: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1: (out, lse), lse None unless ``with_lse``."""
     fn = _kernel("attention_fwd", 6)
     B, H, Lq, D = q.shape
@@ -294,12 +374,12 @@ def _launch(q, k, v, mask, dropout_rate: float, seed: int,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                  out.data_ptr(), lse.data_ptr() if with_lse else None,
                  _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
-                 *_scalars(q, dropout_rate, seed), stream)
+                 *_scalars(q, dropout_rate, seed, mode), stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
     with _COUNT_LOCK:
-        LAUNCHES[(str(q.dtype)[6:], H, Lq, Lk, D)] += 1
+        LAUNCHES[(str(q.dtype)[6:], mode, H, Lq, Lk, D)] += 1
     return out, lse
 
 
@@ -313,8 +393,8 @@ def _key_tile(Lq: int, Lk: int, D: int, dtype: torch.dtype) -> int:
     return fn(Lq, Lk, D, _DTYPES[dtype])
 
 
-def _launch_bwd(q, k, v, mask, g, out, lse, dropout_rate: float, seed: int
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _launch_bwd(q, k, v, mask, g, out, lse, dropout_rate: float, seed: int,
+                mode: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 from the forward's output ``out`` and log-sum-exp ``lse``."""
     fn = _kernel("attention_bwd", 11)
     B, H, Lq, D = q.shape
@@ -338,34 +418,36 @@ def _launch_bwd(q, k, v, mask, g, out, lse, dropout_rate: float, seed: int
                  dk.data_ptr(), dv.data_ptr(),
                  dq_acc.data_ptr() if dq_acc is not None else None,
                  _DTYPES[q.dtype], B, H, Lq, Lk, D, Lm,
-                 *_scalars(q, dropout_rate, seed), stream)
+                 *_scalars(q, dropout_rate, seed, mode), stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)} {q.dtype}, Lk {Lk}")
     with _COUNT_LOCK:
-        BWD_LAUNCHES[(str(q.dtype)[6:], H, Lq, Lk, D)] += 1
+        BWD_LAUNCHES[(str(q.dtype)[6:], mode, H, Lq, Lk, D)] += 1
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
     """The counterpart of ``_attention``'s ``custom_vjp``: the forward
-    saves q, k, v, the mask, the int seed and the rate, and, where a
-    gradient will be taken, its output and the rows' log-sum-exp; the
+    saves q, k, v, the mask, the int seed, the rate and the mode, and, where
+    a gradient will be taken, its output and the rows' log-sum-exp; the
     backward regenerates the keep mask from that seed. With ``kernels`` the
     two directions launch K1 and K2, else they run the plain versions. The
     mask and the seed get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, dropout_rate: float, seed: int,
-                kernels: bool):
+                kernels: bool, mode: str):
         ctx.dropout_rate, ctx.seed, ctx.kernels = dropout_rate, seed, kernels
+        ctx.mode = mode
         grad = any(ctx.needs_input_grad[:3])
         with torch.autocast(q.device.type, enabled=False):
             if kernels:
-                out, lse = _launch(q, k, v, mask, dropout_rate, seed, grad)
+                out, lse = _launch(q, k, v, mask, dropout_rate, seed, grad,
+                                   mode)
             else:
                 out, lse = attention_reference(q, k, v, mask, dropout_rate,
-                                               seed, return_lse=True)
+                                               seed, True, mode)
         if grad:
             ctx.save_for_backward(q, k, v, mask, out, lse)
         return out
@@ -376,45 +458,49 @@ class _Attention(torch.autograd.Function):
         with torch.autocast(q.device.type, enabled=False):
             if ctx.kernels:
                 grads = _launch_bwd(q, k, v, mask, g, out, lse,
-                                    ctx.dropout_rate, ctx.seed)
+                                    ctx.dropout_rate, ctx.seed, ctx.mode)
             else:
                 grads = attention_bwd_reference(q, k, v, mask, g,
                                                 ctx.dropout_rate, ctx.seed,
-                                                lse, out)
-        return (*grads, None, None, None, None)
+                                                lse, out, ctx.mode)
+        return (*grads, None, None, None, None, None)
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       additive_mask: Optional[torch.Tensor],
-                      dropout_rate: float = 0.0, seed: int = 0
+                      dropout_rate: float = 0.0, seed: int = 0,
+                      mode: str = ROUND_PROBS
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of :func:`fused_attention` without a gradient: K1 with
     its log-sum-exp on CUDA tensors, the plain version on CPU tensors."""
     mask = _check(q, k, v, additive_mask, dropout_rate, seed)
     if q.is_cuda:
-        return _launch(q, k, v, mask, dropout_rate, seed, True)
-    return attention_reference(q, k, v, mask, dropout_rate, seed,
-                               return_lse=True)
+        return _launch(q, k, v, mask, dropout_rate, seed, True, mode)
+    return attention_reference(q, k, v, mask, dropout_rate, seed, True, mode)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     additive_mask: Optional[torch.Tensor],
-                    dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, seed: int = 0,
+                    mode: str = ROUND_PROBS) -> torch.Tensor:
     """Attention core over [B, H, L, D] with an additive mask that broadcasts
     to [B, 1, 1 or Lq, Lk], differentiable in q, k and v. On CUDA tensors:
     the kernels, forward and backward; on CPU tensors: their plain
-    versions. ``seed`` (int32) picks the dropout mask."""
+    versions. ``seed`` (int32) picks the dropout mask, ``mode`` the
+    numerics (ROUND_PROBS or PALLAS)."""
     mask = _check(q, k, v, additive_mask, dropout_rate, seed)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no attention kernel for device {q.device}")
-    return _Attention.apply(q, k, v, mask, dropout_rate, seed, q.is_cuda)
+    return _Attention.apply(q, k, v, mask, dropout_rate, seed, q.is_cuda,
+                            mode)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     additive_mask: Optional[torch.Tensor],
-                    dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, seed: int = 0,
+                    mode: str = ROUND_PROBS) -> torch.Tensor:
     """:func:`fused_attention` through the plain versions on any device,
     forward and backward: what the kernels are held against on the card.
     The port's modules never call it."""
     mask = _check(q, k, v, additive_mask, dropout_rate, seed)
-    return _Attention.apply(q, k, v, mask, dropout_rate, seed, False)
+    return _Attention.apply(q, k, v, mask, dropout_rate, seed, False, mode)

@@ -1,18 +1,22 @@
 """Per-shape attention path comparison inside the real steps (the port of
 ``tools/attention_shape_bench.py``).
 
-The JAX tool compares XLA's attention with the Pallas kernels. Here, at
-each of its shapes, the flagship model's real steps (``make_eval_step`` with
-the parameters in bf16, ``make_train_step`` under bf16 autocast at batch
-80) run through K1 and K2, then through the plain attention
-(``ops.attention.plain_attention``, what the kernels are held against) in
-the same steps, and through SDPA (``scaled_dot_product_attention``), a
-library yardstick that the port never calls. The attention core is swapped
-at ``models.layers.fused_attention`` for the plain and SDPA runs and put
-back after each. SDPA's dropout draws its own mask: the step costs the same.
+The JAX tool compares XLA's attention path with the Pallas kernels'. Here,
+at each of its shapes, the flagship model's real steps (``make_eval_step``
+with the parameters in bf16, ``make_train_step`` under bf16 autocast at
+batch 80) run through K1 and K2 in the two modes that stand for those
+paths: ``kernels`` in the default mode (the XLA path's numerics, P rounded
+to bf16), ``pallas`` in the Pallas path's (P fp32 through P.V); then
+through the plain attention (``ops.attention.plain_attention`` in the
+default mode, what the kernels are held against) in the same steps, and
+through SDPA (``scaled_dot_product_attention``), a library yardstick that
+the port never calls. The attention core is swapped at
+``models.layers.fused_attention`` for every run but the first and put back
+after each. SDPA's dropout draws its own mask: the step costs the same.
 
 Each entry is rows/s: the median of ``--repeats`` windows of ``--steps``
-steps, each window between two synchronizes, after a warm-up window.
+steps, each window between two synchronizes, after a warm-up step; the
+paths' windows are taken in turns, in an order reversed every round.
 
 Usage: python -m crct_tpu_torch.tools.attention_shape_bench [--steps 20]
        [--shapes eval_chunk_480,...] [--device cpu] [--tiny]
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -36,8 +41,9 @@ SHAPES = [
 
 
 def sdpa_attention(q, k, v, additive_mask, dropout_rate: float = 0.0,
-                   seed: int = 0):
-    """``fused_attention``'s signature over torch's SDPA (the yardstick)."""
+                   seed: int = 0, mode: str = ""):
+    """``fused_attention``'s signature over torch's SDPA (the yardstick; it
+    has one numerics, whatever the mode)."""
     mask = None if additive_mask is None else additive_mask.to(q.dtype)
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, dropout_p=dropout_rate)
@@ -58,7 +64,7 @@ def main(argv=None):
     from crct_tpu_torch import bench
     from crct_tpu_torch.config import CRCTModelConfig
     from crct_tpu_torch.models import layers
-    from crct_tpu_torch.ops.attention import plain_attention
+    from crct_tpu_torch.ops.attention import PALLAS, plain_attention
     from crct_tpu_torch.train.eval_loop import make_eval_step, to_device
     from crct_tpu_torch.utils.device import resolve_device
 
@@ -69,7 +75,13 @@ def main(argv=None):
     if args.shapes:
         keep = set(args.shapes.split(","))
         shapes = [s for s in SHAPES if s[0] in keep]
-    paths = {"kernels": layers.fused_attention, "plain": plain_attention,
+    kernels = layers.fused_attention
+
+    def pallas(*args, mode=None, **kwargs):
+        """K1 and K2 in the Pallas path's mode, whatever the model's."""
+        return kernels(*args, mode=PALLAS, **kwargs)
+
+    paths = {"kernels": kernels, "pallas": pallas, "plain": plain_attention,
              "sdpa": sdpa_attention}
     rng = np.random.default_rng(0)
     results = {}
@@ -94,22 +106,35 @@ def main(argv=None):
             def step():
                 train_step(db, generator)
 
+        # each path's warm-up, then its windows in turns with the others'
+        # (the order reversed every other round), so that a drift of the
+        # host or the card over the shape's run biases no path
+        seconds = {path: [] for path in paths}
+        launched = {path: Counter() for path in paths}
+        for r in range(-1, args.repeats):
+            for path in list(paths)[::1 if r % 2 else -1]:
+                with mock.patch.object(layers, "fused_attention",
+                                       paths[path]), \
+                        bench.Launches() as counted:
+                    if r < 0:
+                        step()
+                    else:
+                        seconds[path] += bench.windows(
+                            lambda: [step() for _ in range(args.steps)], 1,
+                            device)
+                launched[path].update({k: counted.record[k]
+                                       for k in ("k1", "k2")})
         res = {}
-        for path, fn in paths.items():
-            with mock.patch.object(layers, "fused_attention", fn):
-                with bench.Launches() as launched:
-                    step()
-                    seconds = bench.windows(
-                        lambda: [step() for _ in range(args.steps)],
-                        args.repeats, device)
+        for path in paths:
             bench.put_median(res, path, [B * args.steps / s
-                                         for s in seconds])
-            res[f"{path}_ms_per_step"] = float(np.median(seconds)) \
+                                         for s in seconds[path]])
+            res[f"{path}_ms_per_step"] = float(np.median(seconds[path])) \
                 / args.steps * 1e3
-            res[f"{path}_launches"] = {k: launched.record[k]
+            res[f"{path}_launches"] = {k: launched[path][k]
                                        for k in ("k1", "k2")}
             print(f"{name:16s} {path:8s} {res[path]:9.1f} rows/s "
                   f"({res[f'{path}_ms_per_step']:7.2f} ms/step)", flush=True)
+        res["pallas_over_kernels"] = res["pallas"] / res["kernels"]
         res["kernels_over_plain"] = res["kernels"] / res["plain"]
         res["kernels_over_sdpa"] = res["kernels"] / res["sdpa"]
         res["rows"] = B

@@ -10,9 +10,14 @@ against the plain version on the card (tests/test_torch_on_card.py and
 chip_smoke.py).
 
 Tolerances: fp32 at 1e-5 absolute and relative (both sides compute fp32
-scores, probabilities and sums; only the summation order differs); bf16 at
-2e-2 of the largest gradient magnitude (one bf16 rounding of each
-gradient, and bf16 inputs).
+scores, probabilities and sums; only the summation order differs); bf16
+against the Pallas path (the port's PALLAS mode) at 2e-2 of the largest
+gradient magnitude (one bf16 rounding of each gradient, and bf16 inputs).
+The default mode (ROUND_PROBS) against jax.vjp of JAX's default XLA path
+(crct_tpu/models/layers.py:dot_product_attention), fed the same keep mask:
+at most 0.1 % of each of out, dq, dk and dv differ at all, none by more
+than one bf16 ulp of the largest magnitude
+(tests/test_torch_attention.py).
 """
 
 import jax
@@ -21,8 +26,11 @@ import numpy as np
 import pytest
 import torch
 
+from crct_tpu.models import layers as jax_layers
 from crct_tpu.ops import attention as jax_attention
 from crct_tpu_torch.ops import attention as port
+from tests.test_torch_attention import (DIFFERING, FLAGSHIP, bf16_agreement,
+                                        flagship_inputs)
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
 
@@ -53,10 +61,12 @@ def jax_vjp(q, k, v, mask, cot, rate, seed, dtype=jnp.float32):
     return [np.asarray(x, np.float32) for x in (out, *grads)]
 
 
-def port_vjp(q, k, v, mask, cot, rate, seed, dtype=torch.float32):
+def port_vjp(q, k, v, mask, cot, rate, seed, dtype=torch.float32,
+             mode=port.ROUND_PROBS):
     """(out, dq, dk, dv) through the port's autograd Function."""
     t = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
-    out = port.fused_attention(*t, torch.from_numpy(mask), rate, seed)
+    out = port.fused_attention(*t, torch.from_numpy(mask), rate, seed,
+                               mode=mode)
     grads = torch.autograd.grad(out, t, torch.from_numpy(cot).to(dtype))
     return [x.detach().float().numpy() for x in (out, *grads)]
 
@@ -98,7 +108,7 @@ def test_backward_seeds_at_the_int32_edges(seed):
 def test_backward_bf16_matches_pallas_interpret(full_mask):
     q, k, v, mask, cot = make_case(5, H=6, full_mask=full_mask)
     want = jax_vjp(q, k, v, mask, cot, 0.3, 7, jnp.bfloat16)
-    got = port_vjp(q, k, v, mask, cot, 0.3, 7, torch.bfloat16)
+    got = port_vjp(q, k, v, mask, cot, 0.3, 7, torch.bfloat16, port.PALLAS)
     for a, w in zip(got, want):
         tol = 2e-2 * max(1.0, np.abs(w).max())
         np.testing.assert_allclose(a, w, atol=tol, rtol=0)
@@ -168,3 +178,32 @@ def test_plain_backward_with_and_without_lse_and_out(Lk, dtype):
         else:
             tol = 2e-2 * max(1.0, w.float().abs().max().item())
             torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("shape", FLAGSHIP,
+                         ids=["text", "vision", "bi_text", "bi_vision"])
+def test_bf16_default_mode_vjp_matches_the_jax_xla_path(shape, rate):
+    """The default mode's out, dq, dk and dv in bf16 against jax.vjp of
+    JAX's default attention path with the port's keep mask (its bernoulli
+    draw replaced): dv from the bf16 P, dP rounded to bf16 and divided in
+    bf16 by bf16(1 - rate) before the fp32 softmax backward, as JAX's VJP
+    takes them. Within DIFFERING of the elements and one ulp each."""
+    q, k, v, mask = flagship_inputs(40, shape)
+    B, (H, Lq, Lk, D) = 2, shape
+    cot = np.asarray(jnp.asarray(np.random.default_rng(41).normal(
+        size=(B, H, Lq, D)), jnp.bfloat16), np.float32)
+    kept = port._kept((B, H, Lq, Lk), 9, rate, "cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_layers.jax.random, "bernoulli",
+                   lambda rng, p, shape: jnp.asarray(kept.numpy()))
+        out, vjp = jax.vjp(
+            lambda a, b, c: jax_layers.dot_product_attention(
+                a, b, c, jnp.asarray(mask), dropout_rate=rate,
+                deterministic=rate == 0.0, dropout_rng=jax.random.key(0)),
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+        want = (out, *vjp(jnp.asarray(cot, jnp.bfloat16)))
+    got = port_vjp(q, k, v, mask, cot, rate, 9, torch.bfloat16)
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        share, ulps = bf16_agreement(a, w)
+        assert share <= DIFFERING and ulps <= 1.0, (name, share, ulps)

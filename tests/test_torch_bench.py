@@ -136,7 +136,7 @@ def test_the_line_has_bench_pys_shape(line):
     assert line["value"] > 0 and math.isfinite(line["value"])
     assert line["vs_baseline"] == pytest.approx(line["value"] / 115.0)
     aux = line["aux"]
-    assert aux["attention_path"] == "cuda_k1_k2"
+    assert aux["attention_path"] == "cuda_k1_k2_round_probs"
     assert aux["device_name"] == "cpu" and aux["n_chips"] == 1
     assert set(aux["launches"]) == set(SECTION_KEYS)
     # no number of a device metric from the CPU: no MFU, no peak
@@ -158,9 +158,25 @@ def test_peaks_are_the_cards_own():
         bench.peak_tflops("Some Other Card")
 
 
-def test_pallas_is_refused():
-    with pytest.raises(SystemExit, match="--pallas is not ported"):
-        bench.main(["--pallas", "--device", "cpu"])
+@pytest.mark.parametrize("flags", [[], ["--pallas"]],
+                         ids=["default", "pallas"])
+def test_pallas_flag_picks_the_attention_mode(flags, monkeypatch):
+    """--pallas, as bench.py's, runs the model with the Pallas path's
+    attention numerics; without it, the default path's. The run stops at
+    the first section."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def bench_train(cfg, *args, **kwargs):
+        seen.append((cfg.dtype, cfg.use_pallas_attention))
+        raise Stop
+
+    monkeypatch.setattr(bench, "bench_train", bench_train)
+    with pytest.raises(Stop):
+        bench.main([*flags, "--device", "cpu", "--tiny"])
+    assert seen == [("bfloat16", bool(flags))]
 
 
 RANK = ("from crct_tpu_torch import parallel\n"

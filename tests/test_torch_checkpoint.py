@@ -176,14 +176,26 @@ class _Deterministic:
 
 
 CONTINUE = {"default": {}, "bf16_m": {"opt_bf16_m": True},
-            "batch_multiply_2": {"batch_multiply": 2}}
+            "batch_multiply_2": {"batch_multiply": 2}, "no_coattention": {}}
+# a variant's model config fields (the others take the tiny config's)
+CONTINUE_MODEL = {"no_coattention": {"with_coattention": False}}
 
 
 @pytest.fixture(scope="module")
 def continue_case():
-    jcfg = tiny_model_config(**NO_DROPOUT)
-    return jcfg, _Deterministic(JaxCRCTModel(config=jcfg, categories=10)), \
-        [train_batch(40 + i) for i in range(4)]
+    """variant -> (JAX config, JAX model, batches), one a model config."""
+    cases = {}
+
+    def case(variant):
+        fields = CONTINUE_MODEL.get(variant, {})
+        key = tuple(sorted(fields.items()))
+        if key not in cases:
+            jcfg = tiny_model_config(**NO_DROPOUT, **fields)
+            cases[key] = (jcfg, _Deterministic(JaxCRCTModel(config=jcfg,
+                                                            categories=10)),
+                          [train_batch(40 + i) for i in range(4)])
+        return cases[key]
+    return case
 
 
 @pytest.mark.parametrize("variant", list(CONTINUE))
@@ -193,7 +205,7 @@ def test_continue_from_a_jax_trainer_checkpoint(variant, continue_case,
     from crct_tpu.train.train_loop import Trainer as JaxTrainer
     from crct_tpu_torch.train.train_loop import Trainer
     monkeypatch.setattr(layers.DropoutRNG, "dropout", lambda self, x, p: x)
-    jcfg, jmodel, batches = continue_case
+    jcfg, jmodel, batches = continue_case(variant)
     pd = dict(OPT, seed=0, mesh_shape=1, save_path=str(tmp_path),
               **CONTINUE[variant])
     before = 3 if pd["batch_multiply"] > 1 else 2
@@ -237,6 +249,17 @@ def test_continue_from_a_jax_trainer_checkpoint(variant, continue_case,
     mu = {s["mu"].dtype for s in port_next.optimizer.state.values()}
     assert mu == {torch.bfloat16 if pd.get("opt_bf16_m") else torch.float32}
     start = flax_to_state_dict(jax.device_get(first.params))
+    # the JAX tree is the port model's (without co-attention: no c_layer)
+    plain = CRCTModel(port_config(jcfg), categories=10)
+    plain.load_state_dict(start, strict=True)
+    if variant == "no_coattention":
+        # a reference-layout state dict, co-attention layers and all, still
+        # fills every tensor of the model in transfer mode
+        full = CRCTModel(port_config(dataclasses.replace(
+            jcfg, with_coattention=True)), categories=10).state_dict()
+        assert any(".c_layer." in k for k in full)
+        assert ckpt.transfer_params(plain, full, verbose=False) == \
+            len(plain.state_dict())
 
     first.run_step(batches[before])
     port_next.run_step(batches[before])

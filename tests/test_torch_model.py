@@ -9,13 +9,21 @@ TwoStreamEncoder) and the whole CRCTModel eval forward.
 Tolerances: fp32 at atol 1e-5, rtol 1e-4. Flax's LayerNorm takes the
 variance as E[x^2] - E[x]^2, torch's as E[(x - E[x])^2]; with eps 1e-12
 that moves normalized activations by a few fp32 ulps per layer. The bf16
-case compares against the JAX model on its Pallas path (interpret mode),
-whose probabilities stay fp32 as the port's do; bf16 rounds at other places
-in the two frameworks (LayerNorm scale, matmul outputs), so it is held at
-atol 5e-2 on logits of magnitude ~1.
+cases compare the port in -pallas mode against the JAX model on its Pallas
+path (interpret mode), whose probabilities stay fp32 as the port's do, at
+atol 5e-2 on logits of magnitude ~1, and the port's default mode against
+the JAX model's default XLA path, which rounds them to bf16 as the port
+does: the eval forward within 2e-3 + 2e-2 relative (bf16 rounds at other
+places in the two frameworks too: LayerNorm scale, matmul outputs; read
+2.4e-4 on NSP logits of ~0.02), and a training step's loss within 1e-3
+relative and each gradient's relative L2 difference within 0.25, key biases
+apart (zero in exact arithmetic): the port trains under bf16 autocast over
+fp32 parameters, the JAX model in bf16 throughout (read 4.2e-5 and 0.18,
+the regressor's; the median leaf 0.03).
 """
 
 import dataclasses
+import json
 import functools
 
 import jax
@@ -270,6 +278,65 @@ def test_crct_model_eval_forward(variant):
         assert np.isin(got.reg_output.numpy()[needs], DVQA_FLOATS).all()
 
 
+def test_crct_model_bf16_default_path_matches_jax_xla_path():
+    """The eval forward in bf16, attention in the default mode, against the
+    JAX model's default (XLA) attention path."""
+    jcfg = tiny_model_config(dtype="bfloat16")
+    jmodel = JaxCRCTModel(config=jcfg, categories=10)
+    batch = make_batch(4)
+    params = random_params(jmodel, batch, 4)
+    want = jax_forward(jmodel, params, batch)
+    model = CRCTModel(port_config(jcfg), categories=10)
+    assert not model.bert.encoder.config.use_pallas_attention
+    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    model.set_compute_dtype().eval()
+    with torch.no_grad():
+        got = model({k: t(v) for k, v in batch.items()})
+    for name in ("nsp_logits", "reg_output"):
+        np.testing.assert_allclose(getattr(got, name).float().numpy(),
+                                   np.asarray(getattr(want, name), np.float32),
+                                   atol=2e-3, rtol=2e-2, err_msg=name)
+
+
+def test_bf16_train_gradients_match_jax_xla_path(monkeypatch):
+    """One bf16 training forward and backward, dropout off (the config's
+    rates 0, the pooled fusion's fixed 0.1 patched out), the port in its
+    default attention mode against jax.value_and_grad of the JAX model on
+    its default XLA path."""
+    from crct_tpu_torch.models import layers
+    monkeypatch.setattr(layers.DropoutRNG, "dropout", lambda self, x, p: x)
+    jcfg = tiny_model_config(
+        dtype="bfloat16", hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, v_hidden_dropout_prob=0.0,
+        v_attention_probs_dropout_prob=0.0)
+    jmodel = JaxCRCTModel(config=jcfg, categories=10)
+    batch = make_batch(21)
+    batch["next_sentence_labels"] = np.asarray([0, 1, 1, 0, 1, 0], np.int32)
+    params = random_params(jmodel, batch, 21)
+
+    def loss_fn(p):
+        return jmodel.apply({"params": p}, batch, train=True,
+                            deterministic=True).loss
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    want = flax_to_state_dict(jax.device_get(jgrads))
+    model = CRCTModel(port_config(jcfg), categories=10)
+    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    model.train()
+    out = model({k: t(v) for k, v in batch.items()},
+                torch.Generator().manual_seed(0))
+    out.loss.backward()
+    assert abs(out.loss.item() - float(jloss)) <= 1e-3 * abs(float(jloss))
+    for name, p in model.named_parameters():
+        if name.endswith(("key.bias", "key1.bias", "key2.bias")):
+            continue
+        w = want[name].float()
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        assert p.dtype == torch.float32
+        rel = ((g - w).norm() / w.norm().clamp(min=1e-12)).item()
+        assert rel <= 0.25, (name, rel)
+
+
 def test_crct_model_bf16_against_pallas_path(monkeypatch):
     from crct_tpu.ops import attention as A
     monkeypatch.setattr(A, "fused_attention",
@@ -291,3 +358,33 @@ def test_crct_model_bf16_against_pallas_path(monkeypatch):
     np.testing.assert_allclose(got.reg_output.numpy(),
                                np.asarray(want.reg_output), atol=5e-2 * 10,
                                rtol=5e-2)
+
+
+@pytest.mark.parametrize("argv", [[], ["-pallas"]], ids=["default", "pallas"])
+def test_pallas_flag_reaches_every_attention_call(argv, tmp_path,
+                                                  monkeypatch):
+    """-pallas on the CLIs' command line (cli.train, cli.serve,
+    cli.evaluate share it) builds the model with the Pallas path's
+    attention numerics, as crct_tpu/models/crct.py:224 does; without it
+    every attention call takes the default path's. The CLIs refuse it no
+    more."""
+    from crct_tpu_torch.config import read_command_line
+    from crct_tpu_torch.models import layers
+    from crct_tpu_torch.models.crct import build_model
+    from crct_tpu_torch.ops import attention
+    path = tmp_path / "tiny.json"
+    path.write_text(json.dumps(dataclasses.asdict(tiny_model_config())))
+    params = read_command_line(["-qa_file", "qa.npy", "-save_name", "x",
+                                "-model_config", str(path), "-device", "cpu",
+                                *argv])
+    assert params["pallas"] is bool(argv)
+    modes = []
+    real = layers.fused_attention
+    monkeypatch.setattr(layers, "fused_attention",
+                        lambda *a, mode, **k: modes.append(mode)
+                        or real(*a, mode=mode, **k))
+    model = build_model(dict(params, categories=10), device="cpu")
+    with torch.no_grad():
+        model({k: t(v) for k, v in make_batch(5).items()})
+    assert modes and set(modes) == {attention.PALLAS if argv
+                                    else attention.ROUND_PROBS}

@@ -31,6 +31,9 @@ from crct_tpu_torch.ops import attention, roi_align
 from crct_tpu_torch.ops import roi_align_kernel as rk
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# both attention modes: the JAX default path's rounding of P and the Pallas
+# path's fp32 P (one kernel instance in fp32, two in bf16)
+MODES = pytest.mark.parametrize("mode", attention.MODES)
 
 
 @pytest.fixture
@@ -58,28 +61,32 @@ SHAPES = [(5, 32, 44, 124, 32), (3, 6, 1, 9, 16), (2, 7, 33, 65, 128),
           (2, 2, 70, 1000, 128), (1, 2, 1100, 40, 128), (40, 16, 70, 300, 64)]
 
 
+@MODES
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-def test_kernel_matches_plain_on_card(card, shape, dtype):
+def test_kernel_matches_plain_on_card(card, shape, dtype, mode):
     B, H, Lq, Lk, D = shape
     for full in (False, True):
         for rate in (0.0, 0.1):
             q, k, v, mask = make_qkv(8, B, H, Lq, Lk, D, Lq if full else 1,
                                      dtype, card)
             before = attention.launch_count()
-            got = attention.fused_attention(q, k, v, mask, rate, 99)
+            got = attention.fused_attention(q, k, v, mask, rate, 99,
+                                            mode=mode)
             assert attention.launch_count() == before + 1
-            want = attention.attention_reference(q, k, v, mask, rate, 99)
+            want = attention.attention_reference(q, k, v, mask, rate, 99,
+                                                 mode=mode)
             assert got.dtype == dtype
             torch.testing.assert_close(got.float(), want.float(),
                                        atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@MODES
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-def test_kernel_lse_matches_plain_on_card(card, shape, dtype):
+def test_kernel_lse_matches_plain_on_card(card, shape, dtype, mode):
     """The log-sum-exp K1 writes for the backward (fp32 [B, H, Lq]) against
     the plain one, within 1e-5 of max(1, |lse|) in both dtypes (the scores
     are fp32 sums of exact or 3xTF32 products), and the output of that
@@ -89,10 +96,12 @@ def test_kernel_lse_matches_plain_on_card(card, shape, dtype):
         q, k, v, mask = make_qkv(10, B, H, Lq, Lk, D, Lq if full else 1,
                                  dtype, card)
         before = attention.launch_count()
-        out, lse = attention.attention_forward(q, k, v, mask, 0.1, 5)
+        out, lse = attention.attention_forward(q, k, v, mask, 0.1, 5,
+                                               mode=mode)
         assert attention.launch_count() == before + 1
         want, want_lse = attention.attention_reference(q, k, v, mask, 0.1, 5,
-                                                       return_lse=True)
+                                                       return_lse=True,
+                                                       mode=mode)
         assert lse.dtype == torch.float32 and lse.shape == (B, H, Lq)
         top = max(1.0, want_lse.abs().max().item())
         torch.testing.assert_close(lse, want_lse, atol=1e-5 * top, rtol=0)
@@ -100,10 +109,11 @@ def test_kernel_lse_matches_plain_on_card(card, shape, dtype):
                                    atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@MODES
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-def test_backward_kernel_matches_plain_on_card(card, shape, dtype):
+def test_backward_kernel_matches_plain_on_card(card, shape, dtype, mode):
     """K2 through the autograd Function against attention_bwd_reference:
     one launch per backward, and dq, dk, dv within the tolerance."""
     B, H, Lq, Lk, D = shape
@@ -115,12 +125,13 @@ def test_backward_kernel_matches_plain_on_card(card, shape, dtype):
                             generator=torch.Generator(card).manual_seed(3)
                             ).to(dtype)
             q, k, v = (x.requires_grad_() for x in (q, k, v))
-            out = attention.fused_attention(q, k, v, mask, rate, -7)
+            out = attention.fused_attention(q, k, v, mask, rate, -7,
+                                            mode=mode)
             before = attention.bwd_launch_count()
             got = torch.autograd.grad(out, (q, k, v), g)
             assert attention.bwd_launch_count() == before + 1
             want = attention.attention_bwd_reference(q, k, v, mask, g, rate,
-                                                     -7)
+                                                     -7, mode=mode)
             for a, w in zip(got, want):
                 assert a.dtype == dtype
                 tol = TOL[dtype] * max(1.0, w.float().abs().max().item())

@@ -67,12 +67,13 @@ def test_proof_stage_counts_each_kernels_launches(capsys):
     K3 made inside it, each kernel's apart, and no launch made before."""
     from crct_tpu_torch.ops import attention, roi_align_kernel
     from crct_tpu_torch.tools.full_pipeline_proof import _Stage
-    attention.LAUNCHES[("float32", 4, 8, 8, 16)] += 5
+    key = ("float32", attention.ROUND_PROBS, 4, 8, 8, 16)
+    attention.LAUNCHES[key] += 5
     stages = {}
     try:
         with _Stage(stages, "train"):
-            attention.LAUNCHES[("float32", 4, 8, 8, 16)] += 2
-            attention.BWD_LAUNCHES[("float32", 4, 8, 8, 16)] += 3
+            attention.LAUNCHES[key] += 2
+            attention.BWD_LAUNCHES[key] += 3
             roi_align_kernel.LAUNCHES[("float32", 7, 256)] += 1
     finally:
         attention.reset_launch_count()

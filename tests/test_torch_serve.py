@@ -285,10 +285,8 @@ def test_dynamic_batcher_coalesces_and_preserves_order():
 
 def test_cli_rejects_flags_not_yet_ported():
     from crct_tpu_torch.cli.serve import main
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(["-qa_file", "qa_pairs.npy", "-save_name", "x",
-              "-device", "cpu", "-pallas"])
-    # ported: -mesh_shape N serves over the first N cards, which must exist
+    # ported (-pallas too): -mesh_shape N serves over the first N cards,
+    # which must exist
     import torch
     n = torch.cuda.device_count() + 1
     with pytest.raises(SystemExit, match=f"-mesh_shape {n}: only"):

@@ -89,8 +89,9 @@ def test_attention_shape_bench_puts_the_attention_back():
               "--repeats", "1", "--shapes", "serve_b8,train_b80")
     assert set(res["shapes"]) == {"serve_b8", "train_b80"}
     for r in res["shapes"].values():
-        for path in ("kernels", "plain", "sdpa"):
+        for path in ("kernels", "pallas", "plain", "sdpa"):
             assert r[path] > 0
+        assert r["pallas_over_kernels"] > 0
     assert layers.fused_attention is attention.fused_attention
 
 

@@ -5,7 +5,10 @@ numpy batches go through the JAX training code and the port's:
 
   * the tiny CRCTModel's training forward (loss, nsp_loss) and every
     parameter's gradient, against jax.value_and_grad of the JAX model on
-    its Pallas path in interpret mode (the kernels' VJP);
+    its Pallas path in interpret mode (the kernels' VJP), and of model
+    variants no other test trains on its default XLA path (fusion by sum,
+    FigureQA with areas, DVQA, frozen prefixes, no co-attention, binary
+    answers, loss coefficients);
   * the optimizer: the four group labels, the schedule, and whole train
     steps (forward, backward, 4-group AdamW, the 9-slot metrics) against
     crct_tpu.train.train_loop.make_train_step, also with -opt_bf16_m and
@@ -142,6 +145,53 @@ def test_train_forward_and_gradients_match_jax_pallas(variant, monkeypatch):
         g = (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
         # gradients that are zero up to rounding (the key biases: softmax
         # ignores a shift shared by a row) are held at 1e-10
+        scale = max(np.abs(w).max(), 1e-6)
+        np.testing.assert_allclose(g, w, atol=1e-4 * scale, rtol=0,
+                                   err_msg=name)
+
+
+# model variants that no other test trains: (config fields, model keywords)
+TRAIN_VARIANTS = {
+    "fusion_sum": ({"fusion_method": "sum", "pooling_method": "sum"}, {}),
+    "figure_qa_area": ({}, {"dataset": "figure_qa"}),
+    "dvqa": ({}, {"dataset": "dvqa"}),
+    "frozen_prefix": ({"fixed_t_layer": 2, "fixed_v_layer": 1}, {}),
+    "no_coattention": ({"with_coattention": False}, {}),
+    "binary_answers": ({}, {"binary_answers": True}),
+    "loss_coefficients": ({}, {"nsp_loss_coeff": 0.7, "reg_loss_coeff": 1.9,
+                               "tol_margin": 0.05}),
+}
+
+
+@pytest.mark.parametrize("variant", list(TRAIN_VARIANTS))
+def test_model_variants_train_as_the_jax_model(variant, no_pooled_dropout):
+    """Each variant's port model has the JAX tree's parameters (the keys of
+    flax_to_state_dict, loaded strictly: no co-attention layers without
+    co-attention) and the same loss and gradients as the JAX model on its
+    default XLA path, fp32, dropout off."""
+    fields, kw = TRAIN_VARIANTS[variant]
+    jcfg = tiny_model_config(**fields, **NO_DROPOUT)
+    jmodel = JaxCRCTModel(config=jcfg, categories=10, **kw)
+    batch = train_batch(23)
+    if kw.get("dataset") == "figure_qa":
+        batch["area"] = np.random.default_rng(24).random(
+            batch["image_mask"].shape).astype(np.float32)
+    params = random_params(jmodel, batch, 23)
+
+    def loss_fn(p):
+        return jmodel.apply({"params": p}, batch, train=True,
+                            deterministic=True).loss
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    want = flax_to_state_dict(jax.device_get(jgrads))
+    model = port_model(jcfg, params, **kw)
+    assert set(model.state_dict()) == set(want)
+    out = model(tb(batch), torch.Generator().manual_seed(0))
+    out.loss.backward()
+    np.testing.assert_allclose(out.loss.item(), float(jloss), rtol=1e-5)
+    for name, p in model.named_parameters():
+        w = want[name].numpy()
+        g = (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
         scale = max(np.abs(w).max(), 1e-6)
         np.testing.assert_allclose(g, w, atol=1e-4 * scale, rtol=0,
                                    err_msg=name)
@@ -529,12 +579,10 @@ def test_max_checkpoints_keeps_the_newest(data_env, tmp_path):
 
 
 def test_cli_train_refuses_what_is_not_ported(data_env):
-    """-pallas is refused; -ddp is ported (tests/test_torch_parallel.py),
-    and -mesh_shape must equal the world size: one rank drives one card."""
+    """-pallas (tests/test_torch_model.py) and -ddp
+    (tests/test_torch_parallel.py) are ported; -mesh_shape must equal the
+    world size: one rank drives one card."""
     from crct_tpu_torch.cli.train import main
-    with pytest.raises(SystemExit, match="-pallas"):
-        main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-device",
-              "cpu", "-pallas"])
     with pytest.raises(SystemExit, match="-mesh_shape 2 but the world"):
         main(["-qa_file", "qa_pairs.npy", "-save_name", "x", "-no_eval",
               "-device", "cpu", "-ddp", "-dist_url", "tcp://x_1",
