@@ -22,7 +22,10 @@ Phases, one line each (any failure exits non-zero):
   1. device  - the card's name and power limit, as nvidia-smi gives them;
   2. build   - nvcc builds the kernels from crct_tpu_torch/csrc/
                attention_{fwd,bwd}.cu and roi_align_bwd.cu for sm_90a, all
-               at once, and reports their registers and shared memory;
+               at once, and reports their registers and shared memory; for
+               K1's wgmma design (bf16, default mode, Lk <= 128) each
+               instance's registers and spill bytes (ptxas; a spill fails)
+               and its HGMMA instructions in the SASS (none fails);
   3. kernel  - the forward kernel (K1) against its plain PyTorch version at
                the four flagship attention shapes (B = 240 rows), output and
                log-sum-exp, and the backward kernel (K2) against its plain
@@ -38,7 +41,9 @@ Phases, one line each (any failure exits non-zero):
                -pallas mode, how the results are rounded against fp64
                (ROUNDING), in bf16 default mode, the share of elements that
                differ from the plain version's (SHARE), which the -pallas
-               mode's results must miss;
+               mode's results must miss; each K1 row names the design that
+               served it (fwd_design), the wgmma rows with their shared
+               memory, warps and blocks per SM;
   4. serve   - the flagship PlotQA model (config/vilbert.json, random
                weights from a seed, fp32) behind make_server on the card:
                concurrent /v1/answer requests and one /v1/answers batch over
@@ -201,6 +206,7 @@ from unittest import mock
 HERE = os.path.dirname(os.path.abspath(__file__))
 B = 240                       # rows per serve dispatch (resolve_eval_chunk)
 B_TRAIN = 80                  # rows per train step (the flagship -batch_size)
+SMALL_ROWS = 8                # rows of a small serving batch (the times phase)
 SEED = 1234
 # attention shapes of the flagship model (config/vilbert.json, 124 text
 # tokens, 44 regions): name -> (H, Lq, Lk, D)
@@ -243,6 +249,9 @@ VARIANTS = (("float32", DEFAULT), ("bfloat16", DEFAULT), ("bfloat16", PALLAS))
 # to the same plain version, a control that must miss it (K1 0.407-0.415,
 # K2 0.342-0.376); PERF.md, section 6
 SHARE = {"K1": 0.01, "K2": 0.02}
+# outputs of fewer elements than this are not held to SHARE elementwise
+# (a few ties would decide it) where a path's own shape is checked
+SHARE_MIN = 10000
 # the bf16 cross-check's controls (cross_attentions): name -> (P and dS
 # rounded to bf16, the forward's and the backward's dropout seed shift)
 CONTROLS = {"control_p": (True, 0, 0), "control_mask": (False, 0, 1),
@@ -410,6 +419,113 @@ def kernel_row(kernel, name, dtype, mode, err, times, flops, nbytes):
     return row
 
 
+def ptxas_report(log, part):
+    """Registers, stack and spill bytes of each kernel of an nvcc
+    ``-Xptxas -v`` report whose mangled name holds ``part``: {name:
+    {"registers", "stack_bytes", "spill_bytes" (stores and loads)}}."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )"
+                      r"([^' ]+)", line)
+        if m:
+            fn = m.group(1) if part in m.group(1) else None
+            if fn:
+                out.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if fn and m:
+            out[fn]["stack_bytes"] = int(m.group(1))
+            out[fn]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_count(build, name, part, opcode):
+    """``opcode`` instructions in the SASS (cuobjdump -sass) of each kernel
+    of csrc/<name>.cu's library whose mangled name holds ``part``."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.build(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if part in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
+def wgmma_instance(fn):
+    """'NK n, Dp d' of a mangled attention_fwd_wgmma_kernel<NK, DT>."""
+    import re
+    nk, dt = re.search(r"wgmma_kernelILi(\d+)ELi(\d+)E", fn).groups()
+    return f"NK {nk}, Dp {8 * int(dt)}"
+
+
+def wgmma_build_report(build, attention, failures):
+    """K1's wgmma instances as built: each one's registers, stack and spill
+    bytes from ptxas (a spill fails) and its HGMMA instructions in the
+    library's SASS (none fails). A checkout without the design says so."""
+    if not hasattr(attention, "fwd_design"):
+        say("build", "attention_fwd: this checkout's K1 has no wgmma design")
+        return
+    report = ptxas_report(build.compiler_report("attention_fwd"), "wgmma")
+    hgmma = sass_count(build, "attention_fwd", "wgmma", "HGMMA")
+    if not report:
+        failures.append("build: ptxas reported no wgmma instance of K1")
+    parts = []
+    for fn, r in sorted(report.items(), key=lambda kv: [
+            int(x.strip(",")) for x in wgmma_instance(kv[0]).split()[1::2]]):
+        what = wgmma_instance(fn)
+        spills, n = r.get("spill_bytes"), hgmma.get(fn, 0)
+        if spills != 0:
+            failures.append(f"build: K1 wgmma {what} spills {spills} bytes")
+        if n < 1:
+            failures.append(f"build: K1 wgmma {what} has no HGMMA in its SASS")
+        parts.append(f"{what}: {r.get('registers')} registers, {spills} spill "
+                     f"bytes, {r.get('stack_bytes')} stack bytes, {n} HGMMA")
+    say("build", "attention_fwd wgmma instances (NK keys, Dp head columns; "
+                 "ptxas, cuobjdump -sass): " + "; ".join(parts))
+
+
+def wgmma_occupancy(build, failures):
+    """K1's wgmma design at the flagship shapes at B rows: {shape name:
+    (shared memory bytes, warps, blocks per SM)}, and its line: blocks
+    per SM and waves over the card's SMs. 64-row warpgroup tiles, two a
+    block above 64 query rows."""
+    import torch
+    lib = build.load("attention_fwd")
+    for fn in (lib.attention_fwd_wgmma_smem,
+               lib.attention_fwd_wgmma_blocks_per_sm):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ, parts = {}, []
+    for kname, (H, Lq, Lk, D) in SHAPES.items():
+        smem = lib.attention_fwd_wgmma_smem(Lq, Lk, D)
+        per_sm = lib.attention_fwd_wgmma_blocks_per_sm(Lq, Lk, D)
+        nwg = 2 if Lq > 64 else 1
+        if smem < 1 or per_sm < 1:
+            failures.append(f"attention_fwd wgmma occupancy of {kname}: "
+                            f"{smem} bytes, {per_sm} blocks")
+            continue
+        occ[kname] = (smem, 4 * nwg, per_sm)
+        blocks = B * H * -(-Lq // (64 * nwg))
+        parts.append(f"{kname} {smem / 1024:.1f} KB, {4 * nwg} warps, "
+                     f"{per_sm} blocks, {blocks / (per_sm * sms):.2f} waves")
+    say("build", f"attention_fwd wgmma per block (bf16, {DEFAULT}) on {sms} "
+                 f"SMs at B = {B}: " + "; ".join(parts))
+    return occ
+
+
 def device_ms(fn, name=None, iters=20, warmup=3, tries=3):
     """Mean device time of one call on the current card, ms:
     ``crct_tpu_torch/utils/profiling.py``'s ``device_ms`` of this script's
@@ -549,12 +665,29 @@ def rounding(attention, q, k, v, mask, g=None):
     return err(got), err(plain), err(ctrl)
 
 
+def wall_us(fn, calls=300, warmup=20):
+    """Mean wall microseconds of one fn() over ``calls`` back-to-back calls,
+    synchronized once at the end: the host's time per call where it
+    issues slower than the card runs."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def kernel_times(attention):
     """Phase times: device ms of a K1 launch at B rows and K2 at B_TRAIN at
     the four flagship shapes in fp32 and bf16 (key-only mask, no dropout),
     in bf16 in each attention mode the checkout has, through
     fused_attention alone, as the kernel phase times them: the phase that
-    compares two checkouts (--tree) on one card."""
+    compares two checkouts (--tree) on one card. Also K1 at SMALL_ROWS
+    (small serving batches): its device ms and the wall microseconds of a
+    fused_attention call, host included."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(SEED)
     ms = {}
@@ -570,14 +703,23 @@ def kernel_times(attention):
                 return q, k, v, gr, mask
             fwd = inputs(B)
             bwd = inputs(B_TRAIN)
+            small = inputs(SMALL_ROWS)
             for mode in (modes_of(attention) if dtype == torch.bfloat16
                          else [{}]):
+                q, k, v, _, mask = small
+                k1_small = fwd_ms(attention, q, k, v, mask, **mode)
+                k1_small_us = wall_us(lambda: attention.fused_attention(
+                    q, k, v, mask, **mode))
                 q, k, v, _, mask = fwd
                 k1 = fwd_ms(attention, q, k, v, mask, **mode)
                 q, k, v, gr, mask = bwd
                 ms[",".join([name, str(dtype)[6:], *mode.values()])] = {
                     "fwd": k1, "bwd": bwd_ms(attention, q, k, v, mask, gr,
-                                             **mode)}
+                                             **mode),
+                    "fwd_small": k1_small, "fwd_small_wall_us": k1_small_us,
+                    "fwd_design": attention.fwd_design(
+                        dtype, mode.get("mode", DEFAULT), Lk, D)
+                    if hasattr(attention, "fwd_design") else "mma.sync"}
     return ms
 
 
@@ -590,8 +732,10 @@ def k1_errors(attention, name, rows, shape, dtype, g, failures,
     attention mode, key-only and full masks, dropout 0 and 0.1: the output
     (through fused_attention, which skips the log-sum-exp without a
     gradient, and attention_forward) within K_TOL, the log-sum-exp within
-    1e-5 of max(1, |lse|). Returns the worst output error and the worst
-    relative lse error."""
+    1e-5 of max(1, |lse|); in bf16 default mode also at most SHARE of the
+    output elements different from the plain version's at all, where the
+    output has SHARE_MIN elements or more. Returns the worst output error
+    and the worst relative lse error."""
     import torch
     H, Lq, Lk, D = shape
     tol = K_TOL[str(dtype)[6:]]
@@ -622,6 +766,13 @@ def k1_errors(attention, name, rows, shape, dtype, g, failures,
             if not err_lse <= 1e-5 * top:
                 failures.append(f"{case}: lse off by {err_lse} > 1e-5 x "
                                 f"{top}")
+            if (str(dtype)[6:] == "bfloat16" and mode == DEFAULT
+                    and want.numel() >= SHARE_MIN):
+                share = max(differing((x,), (want,)) for x in (got, got2))
+                if not share <= SHARE["K1"]:
+                    failures.append(f"{case}: {share:.4g} of the output "
+                                    f"elements differ from the plain "
+                                    f"version's > {SHARE['K1']}")
             worst, worst_lse = max(worst, err), max(worst_lse, err_lse / top)
     return worst, worst_lse
 
@@ -744,9 +895,11 @@ def check_kernel(attention, name, shape, failures):
                 (attention.fused_attention(q, k, v, mask, mode=m),), want)
                 for m in (DEFAULT, PALLAS))
             hold_share(f"K1 {name}", "K1", *sh, failures)
-        rows.append((kernel_row("fwd", name, dtype, mode, worst, times,
-                                flops, nbytes), flops, nbytes, worst_lse,
-                     rnd, sh))
+        row = kernel_row("fwd", name, dtype, mode, worst, times, flops,
+                         nbytes)
+        if hasattr(attention, "fwd_design"):
+            row["design"] = attention.fwd_design(dtype, mode, Lk, D)
+        rows.append((row, flops, nbytes, worst_lse, rnd, sh))
     return rows
 
 
@@ -4525,6 +4678,10 @@ def check_shapes(attention, rk, seen, phase, card, failures,
             err = errors(attention, name, rows, (H, Lq, Lk, D),
                          getattr(torch, dname), g, failures, mode)
             err = err[0] if kname == "K1" else err
+            if kname == "K1" and hasattr(attention, "fwd_design"):
+                design = attention.fwd_design(getattr(torch, dname), mode,
+                                              Lk, D)
+                name += f" ({design} design)"
             say(phase, f"{name} {dname} {mode}: max abs err {err:.3g} "
                        f"against the plain version (tol {K_TOL[dname]}"
                        f"{'' if kname == 'K1' else ' of max(1, |grad|)'}; "
@@ -4879,12 +5036,18 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
     """Phase 3: every kernel against its plain version, timed; the rows of
     the kernels' JSON line by (kernel, shape, dtype)."""
     import torch
+    occ = (wgmma_occupancy(build, failures)
+           if hasattr(attention, "fwd_design") else {})
     fwd_rows = {}
     for kname, shape in SHAPES.items():
         for row, flops, nbytes, lse_err, rnd, sh in check_kernel(
                 attention, kname, shape, failures):
             fwd_rows[(kname, row["dtype"], row["mode"])] = row
+            if row.get("design") == "wgmma" and kname in occ:
+                row["smem_bytes"], row["warps"], row["blocks_per_sm"] = \
+                    occ[kname]
             say("kernel", f"K1 {kname} {row['dtype']} {row['mode']} "
+                          f"({row.get('design', 'mma.sync')} design) "
                           f"(B, H, Lq, Lk, D) = "
                           f"{(B, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
@@ -5021,12 +5184,16 @@ def main():
                      f"{use}")
     say("build", f"{len(KERNELS)} kernels built and loaded in "
                  f"{time.perf_counter() - t0:.1f} s")
+    wgmma_build_report(build, attention, failures)
 
     if "times" in phases:
         ms = kernel_times(attention)
         for key, t in ms.items():
-            say("times", f"{key}: K1 {t['fwd']:.4f} ms, K2 {t['bwd']:.4f} ms "
-                         f"({card})")
+            say("times", f"{key}: K1 {t['fwd']:.4f} ms ({t['fwd_design']} "
+                         f"design), K2 {t['bwd']:.4f} ms; K1 at "
+                         f"{SMALL_ROWS} rows {t['fwd_small']:.4f} ms, "
+                         f"{t['fwd_small_wall_us']:.1f} us a call with the "
+                         f"host ({card})")
         k3 = roi_times(roi_align, rk)
         for key, t in k3.items():
             say("times", f"K3 {key}: {t:.4f} ms, everything the wrapper "

@@ -20,7 +20,33 @@
 // fp32 row), and 183 MB in bf16 (0.055 ms of bytes, 0.011 ms at 989
 // TFLOP/s: bytes bound the bf16 row).
 //
-// Design: a block of W <= 8 warps takes 16 W query rows of one (batch,
+// Three designs; attention_fwd picks one by dtype, mode and shape alone
+// (attention_fwd_design), and a launch that fails raises, never falls back.
+//
+// The wgmma design (bf16 with round_p, the default mode of every bf16
+// train, eval and serve step, with Lk <= 128 and D a multiple of 8): the
+// whole key row in one pass, as the TPU kernel's softmax (_probs) takes
+// it. A block of one or two warpgroups takes 64 query rows each of one
+// (batch, head). Thread 0 has TMA copy Q of the block, K and V of the
+// (batch, head) into shared memory (3-D tensor maps over [B*H, L, D],
+// boxes of 64 columns in the 128-byte swizzle that wgmma reads; rows and
+// columns outside the tensor arrive as zeros: D = 48 fills 96 of a row's
+// 128 bytes) on two mbarriers, Q and K on one and V on the other, so V
+// lands while the scores are taken. The key-only mask row is staged once a
+// block. Each warpgroup then takes S = Q K^T for all keys (padded to NK =
+// 64 or 128) as one chain of D/16 wgmma m64nNKk16 from shared memory into
+// registers, the rows' exact max and sum from the accumulators (quad
+// shuffles), P = exp2(s - m) / sum rounded to bf16 with the keep bit, and
+// packs P to bf16 A fragments as the accumulators lie; O = P V is one chain
+// of wgmma m64nDk16 with A from registers and V as an MN-major operand. So
+// Q K^T, the mask and exp2 are each taken once. O goes through the
+// warpgroup's Q tile (swizzled, conflict-free) to a TMA store that clips
+// the rows past Lq and the columns past D. Registers: S 64 fp32 a thread
+// at NK 128, packed P 32, O D/2; two blocks of 8 warps an SM (one of 8 at
+// D > 64).
+//
+// The mma.sync designs (everything else: fp32, bf16 -pallas, and bf16 with
+// round_p past 128 keys): a block of W <= 8 warps takes 16 W query rows of one (batch,
 // head), each warp a 16-row slab. Q of the block and one tile of up to 128
 // keys of K and V at a time (all keys at the flagship shapes) are staged in
 // shared memory in the input dtype with
@@ -35,14 +61,17 @@
 // 3xTF32 for fp32). Registers are capped for two blocks of 8 warps
 // an SM, so one block's loads overlap another's products.
 //
-// round_p: the online softmax multiplies the unnormalised exp(s - m) into V
-// and divides at the end, but the JAX path rounds the normalised P. So this
-// instance takes two passes over the key tiles, the first for the rows' max
-// and sum only (S = Q K^T, no V), the second for P = exp(s - m) / sum,
-// rounded, and O += P V in one bf16 product (no low part). With one key tile
-// (Lk <= 128, every flagship shape) K and V are staged once for both passes.
+// round_p in the mma.sync design: the online softmax multiplies the
+// unnormalised exp(s - m) into V and divides at the end, but the JAX path
+// rounds the normalised P. So that instance takes two passes over the key
+// tiles, the first for the rows' max and sum only (S = Q K^T, no V), the
+// second for P = exp(s - m) / sum, rounded, and O += P V in one bf16
+// product (no low part).
+
+#include <dlfcn.h>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -318,6 +347,20 @@ size_t smem_bytes(int W, int bk, int D) {
   return region<T>((size_t)16 * W * ld) + region<T>((size_t)2 * bk * ld);
 }
 
+// raise the kernel's shared-memory limit once on each device (the limit is
+// a device's) to the most any launch may take (every launch stays within
+// kMaxSmem)
+template <auto kernel>
+cudaError_t raise_smem_limit() {
+  static unsigned long long raised = 0;  // bit d: raised on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && (raised & (1ull << dev)))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && dev < 64) raised |= 1ull << dev;
+  return err;
+}
+
 template <typename T, int DT, bool ROUND>
 int launch_dt(const T* q, const T* k, const T* v, const float* mask, T* out,
               float* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
@@ -326,19 +369,8 @@ int launch_dt(const T* q, const T* k, const T* v, const float* mask, T* out,
   const int W = warps_for(Lq);
   const int bk = key_tile(Lk);
   const size_t smem = smem_bytes<T>(W, bk, D);
-  // raise the instantiation's shared-memory limit once on each device (the
-  // limit is a device's), to the most any launch needs (every launch stays
-  // within kMaxSmem)
-  static unsigned long long raised = 0;  // bit d: raised on device d
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = raise_smem_limit<attention_fwd_kernel<T, DT, ROUND>>();
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !(raised & (1ull << dev))) {
-    err = cudaFuncSetAttribute(attention_fwd_kernel<T, DT, ROUND>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) raised |= 1ull << dev;
-  }
   const int vec = (D * sizeof(T)) % 16 == 0 &&
                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const dim3 grid(B * H, (Lq + 16 * W - 1) / (16 * W));
@@ -367,14 +399,316 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 #undef CRCT_FWD
 }
 
+// ---- the wgmma design (see the head of the file) ---------------------------
+
+constexpr int kWgRows = 64;     // query rows of a warpgroup's tile
+constexpr int kWgKeys = 128;    // keys the design takes, at most
+constexpr int kRow = 128;       // bytes of a swizzled row: 64 bf16
+
+// Shared memory of a block of nwg warpgroups at NK keys and 8 DT head
+// columns, from a 1024-byte boundary: Q (then O) of each warpgroup, K, V
+// (each in 64-column slabs of whole 8-row atoms), the mask row, the two
+// mbarriers.
+template <int NK, int DT>
+struct WgLayout {
+  static constexpr int slabs = DT > 8 ? 2 : 1;
+  static constexpr int q_tile = slabs * kWgRows * kRow;
+  static constexpr int kv = slabs * NK * kRow;
+  static size_t bytes(int nwg) {
+    return 1024 + (size_t)nwg * q_tile + 2 * kv + NK * sizeof(float) + 2 * sizeof(uint64_t);
+  }
+};
+
+template <int NK, int DT>
+__global__ void __launch_bounds__(256, DT > 8 ? 1 : 2)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to,
+                           const float* __restrict__ mask, float* __restrict__ lse, int H,
+                           int Lq, int Lk, int Lm, float scale, float rate, float keep_scale,
+                           float keep_rcp, uint32_t seed, int hb) {
+  using namespace hopper;
+  using L = WgLayout<NK, DT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int nwg = blockDim.x >> 7;
+  unsigned char* sK = sQ + nwg * L::q_tile;
+  unsigned char* sV = sK + L::kv;
+  float* sMask = reinterpret_cast<float*>(sV + L::kv);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sMask + NK);  // Q and K; V
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * nwg * kWgRows;
+  const int tiles = min(nwg, (Lq - q0 + kWgRows - 1) / kWgRows);  // tiles with rows
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bars[0], tiles * L::q_tile + L::kv);
+    for (int w = 0; w < tiles; ++w)
+      for (int s = 0; s < L::slabs; ++s)
+        tma_load_3d(sQ + w * L::q_tile + s * kWgRows * kRow, &tq, &bars[0], 64 * s,
+                    q0 + kWgRows * w, bh);
+    for (int s = 0; s < L::slabs; ++s)
+      tma_load_3d(sK + s * NK * kRow, &tk, &bars[0], 64 * s, 0, bh);
+    mbar_expect_tx(&bars[1], L::kv);
+    for (int s = 0; s < L::slabs; ++s)
+      tma_load_3d(sV + s * NK * kRow, &tv, &bars[1], 64 * s, 0, bh);
+  }
+  // the key-only mask row, -inf past the last key
+  if (Lm == 1)
+    for (int j = threadIdx.x; j < NK; j += blockDim.x)
+      sMask[j] = j < Lk ? mask[(size_t)b * Lk + j] : -CUDART_INF_F;
+  __syncthreads();
+  if (wg >= tiles) return;
+
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+  const int gr = lane >> 2, tq4 = lane & 3;
+  const int rl = 16 * (t >> 5) + gr;          // the thread's rows rl, rl + 8 of the tile
+  const int row[2] = {q0 + kWgRows * wg + rl, q0 + kWgRows * wg + rl + 8};
+  unsigned char* tQ = sQ + wg * L::q_tile;
+
+  // S = Q K^T over every key, D / 16 k-steps along the swizzled rows
+  float s[NK / 2];
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) s[i] = 0.f;
+  mbar_wait(&bars[0], 0);
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DT / 2; ++kk) {
+    const int at = (kk / 4) * kWgRows * kRow + (kk % 4) * 32;
+    const uint64_t da = desc_b128(tQ + at, 16, 1024);
+    const uint64_t db = desc_b128(sK + (kk / 4) * NK * kRow + (kk % 4) * 32, 16, 1024);
+    if constexpr (NK == 64) wgmma_ss_n64(s, da, db, 1);
+    else wgmma_ss_n128(s, da, db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+
+  // scores in log2 units and the rows' exact max
+  const float* mrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    mrow[i] = mask + ((size_t)b * Lm + (Lm == 1 ? 0 : min(row[i], Lq - 1))) * Lk;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < NK / 8; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 8 * i + 2 * tq4 + (c & 1);
+      const float mv = Lm == 1 ? sMask[j] : (j < Lk ? mrow[c >> 1][j] : -CUDART_INF_F);
+      s[4 * i + c] = (s[4 * i + c] * scale + mv) * kLog2e;
+      m[c >> 1] = fmaxf(m[c >> 1], s[4 * i + c]);
+    }
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) {
+    s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    inv[i] = 1.f / l[i];
+  }
+
+  // P normalised and rounded to bf16, the kept ones divided in bf16 by
+  // bf16(1 - rate), packed as the A fragments of P V's k-steps
+  const DropoutStream drop(seed, b, h, H, hb);
+  const bool dropout = rate > 0.f;
+  uint32_t pa[NK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 2 * kk + (r >> 1);
+      const int c = 2 * (r & 1);
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[e] = round_bf16(s[4 * i + c + e] * inv[r & 1]);
+        if (dropout)
+          p[e] = drop.keep(row[r & 1], 8 * i + 2 * tq4 + e, rate, keep_scale) != 0.f
+                     ? round_bf16(p[e] * keep_rcp)
+                     : 0.f;
+      }
+      pa[kk][r] = pack_bf16(p[0], p[1]);
+    }
+  }
+
+  // O = P V: the k-steps that hold keys, V MN-major (its rows are keys)
+  float o[4 * DT];
+#pragma unroll
+  for (int i = 0; i < 4 * DT; ++i) o[i] = 0.f;
+  mbar_wait(&bars[1], 0);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    if (16 * kk < Lk) {
+      const uint64_t db = desc_b128(sV + kk * 16 * kRow, NK * kRow, 1024);
+      if constexpr (DT == 4) wgmma_rs_n32(o, pa[kk], db, 1);
+      else if constexpr (DT == 6) wgmma_rs_n48(o, pa[kk], db, 1);
+      else if constexpr (DT == 8) wgmma_rs_n64(o, pa[kk], db, 1);
+      else wgmma_rs_n128(o, pa[kk], db, 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(o);
+
+  // O in bf16 into the warpgroup's Q tile (every warp's S has read it),
+  // swizzled as the TMA store reads it, then stored
+  named_barrier(1 + wg, 128);
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = rl + 8 * e;
+      unsigned char* at = tQ + (dt / 8) * kWgRows * kRow + r * kRow +
+                          (((dt % 8) ^ (r & 7)) * 16) + 4 * tq4;
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * dt + 2 * e], o[4 * dt + 2 * e + 1]);
+    }
+  }
+  fence_async_shared();
+  named_barrier(1 + wg, 128);
+  if (t == 0) {
+    for (int sl = 0; sl < L::slabs; ++sl)
+      tma_store_3d(&to, tQ + sl * kWgRows * kRow, 64 * sl, q0 + kWgRows * wg, bh);
+    tma_store_wait();
+  }
+  if (lse != nullptr && tq4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < Lq) lse[(size_t)bh * Lq + row[i]] = (m[i] + log2f(l[i])) * kLn2;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, from the libcuda the process has loaded
+// (a host function: it encodes, it does not touch the card)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of a contiguous bf16 [BH, L, D] tensor at p: boxes of 64
+// columns by `rows` rows of one (batch, head), 128-byte swizzled
+cudaError_t tensor_map(CUtensorMap* map, const void* p, int BH, int L, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// warpgroups a block of the wgmma design takes for Lq query rows
+int wg_count(int Lq) { return Lq > kWgRows ? 2 : 1; }
+
+template <int NK, int DT>
+int launch_wgmma_dt(const void* q, const void* k, const void* v, const float* mask, void* out,
+                    float* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
+                    float rate, float keep_scale, float keep_rcp, int seed, int hb,
+                    cudaStream_t stream) {
+  // TMA takes 16-byte aligned tensors
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  cudaError_t err = raise_smem_limit<attention_fwd_wgmma_kernel<NK, DT>>();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv, to;
+  const int BH = B * H;
+  if ((err = tensor_map(&tq, q, BH, Lq, D, kWgRows)) != cudaSuccess ||
+      (err = tensor_map(&tk, k, BH, Lk, D, NK)) != cudaSuccess ||
+      (err = tensor_map(&tv, v, BH, Lk, D, NK)) != cudaSuccess ||
+      (err = tensor_map(&to, out, BH, Lq, D, kWgRows)) != cudaSuccess)
+    return (int)err;
+  const int nwg = wg_count(Lq);
+  const dim3 grid(BH, (Lq + nwg * kWgRows - 1) / (nwg * kWgRows));
+  attention_fwd_wgmma_kernel<NK, DT><<<grid, 128 * nwg, WgLayout<NK, DT>::bytes(nwg), stream>>>(
+      tq, tk, tv, to, mask, lse, H, Lq, Lk, Lm, scale, rate, keep_scale, keep_rcp,
+      (uint32_t)seed, hb);
+  return (int)cudaGetLastError();
+}
+
+template <int NK_, int DT_>
+struct WgInstance {
+  static constexpr int NK = NK_, DT = DT_;
+};
+
+// f(WgInstance<NK, DT>{}) for the wgmma instance of (Lk, D): the keys
+// padded to NK = 64 or 128, the head columns to 8 DT
+template <typename F>
+int with_wgmma_instance(int Lk, int D, F&& f) {
+  const bool wide = Lk > 64;
+  switch (head_tiles(D)) {
+    case 4: return wide ? f(WgInstance<128, 4>{}) : f(WgInstance<64, 4>{});
+    case 6: return wide ? f(WgInstance<128, 6>{}) : f(WgInstance<64, 6>{});
+    case 8: return wide ? f(WgInstance<128, 8>{}) : f(WgInstance<64, 8>{});
+    default: return wide ? f(WgInstance<128, 16>{}) : f(WgInstance<64, 16>{});
+  }
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, void* out,
+                 void* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
+                 float rate, float keep_scale, float keep_rcp, int seed, int hb,
+                 cudaStream_t stream) {
+  return with_wgmma_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_wgmma_dt<I::NK, I::DT>(q, k, v, static_cast<const float*>(mask), out,
+                                         static_cast<float*>(lse), B, H, Lq, Lk, D, Lm,
+                                         scale, rate, keep_scale, keep_rcp, seed, hb, stream);
+  });
+}
+
 }  // namespace
+
+// The design a launch takes: 0 the mma.sync one-pass online softmax (fp32,
+// bf16 -pallas), 1 the mma.sync two-pass rounding instance (bf16 with
+// round_p past kWgKeys keys, or D not a multiple of 8, which TMA's 16-byte
+// row strides need), 2 the wgmma design; -1 on bad input.
+extern "C" int attention_fwd_design(int dtype, int round_p, int Lk, int D) {
+  if (Lk < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) return -1;
+  if (dtype == 0 || !round_p) return 0;
+  return Lk <= kWgKeys && D % 8 == 0 ? 2 : 1;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q/out [B,H,Lq,D],
 // k/v [B,H,Lk,D] in that dtype, mask [B,1,Lm,Lk] float32 with Lm in {1, Lq},
 // lse float32 [B,H,Lq] or null (not written). keep_scale is the fp32
 // 1 / (1 - rate), keep_rcp the fp32 1 / bf16(1 - rate); round_p (bf16
 // only: in fp32 the two modes are one function) rounds P as the JAX default
-// path does. Returns the CUDA error code of the launch (0 = launched).
+// path does. The wgmma design takes 16-byte aligned q, k, v and out.
+// Returns the CUDA error code of the launch (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, void* lse, int dtype,
                              int B, int H, int Lq, int Lk, int D, int Lm,
@@ -384,14 +718,47 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
       H % hb != 0 || (Lm != 1 && Lm != Lq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, false>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale,
-                                rate, keep_scale, keep_rcp, seed, hb, s);
-  if (dtype == 1 && round_p)
-    return launch<__nv_bfloat16, true>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
-                                       scale, rate, keep_scale, keep_rcp, seed, hb, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, false>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
-                                        scale, rate, keep_scale, keep_rcp, seed, hb, s);
-  return (int)cudaErrorInvalidValue;
+  switch (attention_fwd_design(dtype, round_p, Lk, D)) {
+    case 0:
+      if (dtype == 0)
+        return launch<float, false>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale,
+                                    rate, keep_scale, keep_rcp, seed, hb, s);
+      return launch<__nv_bfloat16, false>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
+                                          scale, rate, keep_scale, keep_rcp, seed, hb, s);
+    case 1:
+      return launch<__nv_bfloat16, true>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm,
+                                         scale, rate, keep_scale, keep_rcp, seed, hb, s);
+    case 2:
+      return launch_wgmma(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale, rate,
+                          keep_scale, keep_rcp, seed, hb, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Bytes of dynamic shared memory one block of the wgmma design takes at
+// (Lq, Lk, D) (0 where the design takes no such launch).
+extern "C" int attention_fwd_wgmma_smem(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_fwd_design(1, 1, Lk, D) != 2) return 0;
+  return with_wgmma_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return (int)WgLayout<I::NK, I::DT>::bytes(wg_count(Lq));
+  });
+}
+
+// Blocks of the wgmma design at (Lq, Lk, D) that one SM holds at once, as
+// the CUDA occupancy calculator gives them from the kernel's registers,
+// threads and shared memory; a negative CUDA error code on failure.
+extern "C" int attention_fwd_wgmma_blocks_per_sm(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_fwd_design(1, 1, Lk, D) != 2) return -(int)cudaErrorInvalidValue;
+  return with_wgmma_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    cudaError_t err = raise_smem_limit<attention_fwd_wgmma_kernel<I::NK, I::DT>>();
+    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, attention_fwd_wgmma_kernel<I::NK, I::DT>, 128 * wg_count(Lq),
+        WgLayout<I::NK, I::DT>::bytes(wg_count(Lq)));
+    return err == cudaSuccess ? blocks : -(int)err;
+  });
 }

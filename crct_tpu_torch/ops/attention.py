@@ -55,14 +55,19 @@ time: operations bound it) and ~183 MB in bf16 (0.055 ms of memory time
 against 0.011 ms at 989 TFLOP/s: bytes bound it). The backward at B = 80
 does 9.4 GFLOP against ~214 MB in fp32 (0.14 against 0.064 ms) and ~107 MB
 in bf16 (0.010 against 0.032 ms). Both kernels run every product on the
-tensor cores with mma.sync (``csrc/attention_common.cuh``): 3xTF32 for fp32
-inputs, fp32-accurate; bf16 products for bf16 inputs, where the score
-gradients, and in ``PALLAS`` mode the probabilities, enter split into a
-bf16 high and low part (about 16 significant bits, finer than TF32, so
-that they stay fp32-like as in the JAX Pallas path). In ``ROUND_PROBS``
-mode P is bf16 and P.V and dv take one bf16 product: K1 then takes two
-passes over the keys, the first for the rows' max and sum, so that it
-rounds the normalized P as JAX does.
+tensor cores (``csrc/attention_common.cuh``): 3xTF32 for fp32 inputs,
+fp32-accurate; bf16 products for bf16 inputs, where the score gradients,
+and in ``PALLAS`` mode the probabilities, enter split into a bf16 high and
+low part (about 16 significant bits, finer than TF32, so that they stay
+fp32-like as in the JAX Pallas path). In ``ROUND_PROBS`` mode P is bf16
+and P.V and dv take one bf16 product. K1 has three designs, picked by
+dtype, mode and shape (:func:`fwd_design`): in ``ROUND_PROBS`` mode with
+bf16 inputs, up to 128 keys and D a multiple of 8 (every bf16 train, eval
+and serve step at the flagship shapes) one pass over the whole key row on
+Hopper's ``wgmma`` and TMA copies; past 128 keys two ``mma.sync`` passes
+over the key tiles, the first for the rows' max and sum, so that it rounds
+the normalized P as JAX does; fp32 and ``PALLAS`` an ``mma.sync`` online
+softmax.
 """
 
 from __future__ import annotations
@@ -358,6 +363,24 @@ def _scalars(q: torch.Tensor, dropout_rate: float, seed: int, mode: str):
             float(np.float32(1.0) / np.float32(keep_divisor(dropout_rate))),
             int(np.int32(seed)), _head_block(q.shape[1]),
             int(_rounds(q.dtype, mode)))
+
+
+# K1's designs, by the code csrc/attention_fwd.cu's attention_fwd_design
+# gives them
+FWD_DESIGNS = {0: "mma.sync", 1: "mma.sync two-pass", 2: "wgmma"}
+
+
+def fwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:
+    """The design of K1 that a launch at (dtype, mode, Lk, D) takes, as
+    the kernel's C entry picks it (it builds the kernel at first use)."""
+    from crct_tpu_torch.ops.build import load
+    fn = load("attention_fwd").attention_fwd_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    code = fn(_DTYPES[dtype], int(_rounds(dtype, mode)), Lk, D)
+    if code not in FWD_DESIGNS:
+        raise ValueError(f"no K1 design for {dtype}, Lk {Lk}, D {D}")
+    return FWD_DESIGNS[code]
 
 
 def _launch(q, k, v, mask, dropout_rate: float, seed: int, with_lse: bool,

@@ -83,9 +83,18 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)     # atomic: a concurrent loader sees all or nothing
     BUILD_LOG[name] = (time.perf_counter() - t0, log)
     return out
+
+
+def compiler_report(name: str) -> str:
+    """What nvcc (with ``-Xptxas -v``: registers, spills, shared memory of
+    each kernel) reported when it built the library of ``csrc/<name>.cu``
+    that :func:`build` returns, also when that build was an earlier
+    process's."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

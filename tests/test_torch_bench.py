@@ -25,6 +25,7 @@ import torch
 import bench as jax_bench
 from __graft_entry__ import _synthetic_step_batch as jax_step_batch
 from crct_tpu_torch import bench
+from tests.torch_ranks import start_ranks
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -190,19 +191,17 @@ def test_two_ranks_form_a_group_from_params_without_seed_or_save_path():
     device: neither a seed nor a save path to agree on. Two gloo ranks form
     the group (``maybe_initialize_distributed`` broadcast an empty object
     list, which raised, before)."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                 WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r)))
-        for r in range(2)]
-    outs = [p.communicate(timeout=120) for p in procs]
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, err[-2000:]
+    def start(port):
+        return [subprocess.Popen(
+            [sys.executable, "-c", RANK], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
+                     LOCAL_RANK=str(r)))
+            for r in range(2)]
+
+    for r, (code, out, err) in enumerate(start_ranks(start, timeout=120)):
+        assert code == 0, err[-2000:]
         assert out.split() == ["True", "2", str(r)]
 
 

@@ -179,6 +179,74 @@ def test_backward_regenerates_the_forward_mask_on_card(card):
                                (v * dv).sum().double(), rtol=1e-5, atol=1e-3)
 
 
+# K1's wgmma design (bf16, the default mode, up to 128 keys) at its edges:
+# query rows around its 64-row warpgroup tiles and 128-row blocks, keys
+# around its 64- and 128-key instances (129 takes the two-pass instance),
+# the head widths of each instance; key-only and full masks, dropout 0 and
+# 0.1. Held as chip_smoke.py holds it at the flagship shapes: the output
+# within 2e-2, the log-sum-exp within 1e-5 of max(1, |lse|), and at most
+# 1 % of the output elements different from the plain version's at all
+# (SHARE; about 3e-4 at the flagship shapes, PERF.md)
+WG_SHARE = 0.01
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("Lk", [1, 9, 124, 128, 129])
+@pytest.mark.parametrize("Lq", [1, 63, 64, 65, 124, 129])
+def test_wgmma_design_matches_plain_on_card(card, Lq, Lk, D):
+    B, H = 4, 8
+    mode = attention.ROUND_PROBS
+    assert attention.fwd_design(torch.bfloat16, mode, Lk, D) == (
+        "wgmma" if Lk <= 128 else "mma.sync two-pass")
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = make_qkv(Lq * Lk + D, B, H, Lq, Lk, D,
+                                     Lq if full else 1, torch.bfloat16, card)
+            before = attention.launch_count()
+            out, lse = attention.attention_forward(q, k, v, mask, rate, 21,
+                                                   mode=mode)
+            assert attention.launch_count() == before + 1
+            want, want_lse = attention.attention_reference(
+                q, k, v, mask, rate, 21, return_lse=True, mode=mode)
+            top = max(1.0, want_lse.abs().max().item())
+            torch.testing.assert_close(lse, want_lse, atol=1e-5 * top, rtol=0)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       atol=TOL[torch.bfloat16],
+                                       rtol=TOL[torch.bfloat16])
+            share = (out != want).float().mean().item()
+            assert share <= WG_SHARE, (full, rate, share)
+
+
+def test_wgmma_design_takes_the_flagship_default_mode_on_card(card):
+    """The default mode's bf16 launches at the flagship shapes take the
+    wgmma design; fp32, -pallas and the two-pass instance's keep theirs."""
+    for Lk, D in ((124, 48), (44, 64), (44, 32), (124, 32)):
+        assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS,
+                                    Lk, D) == "wgmma"
+        assert attention.fwd_design(torch.bfloat16, attention.PALLAS, Lk,
+                                    D) == "mma.sync"
+        assert attention.fwd_design(torch.float32, attention.ROUND_PROBS,
+                                    Lk, D) == "mma.sync"
+    assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS, 300,
+                                64) == "mma.sync two-pass"
+    assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS, 44,
+                                12) == "mma.sync two-pass"
+
+
+def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card):
+    """TMA reads 16-byte aligned tensors: a contiguous view 2 bytes into
+    its storage raises at the launch, which is not counted, rather than
+    taking another design."""
+    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, torch.bfloat16, card)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    before = attention.launch_count()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        attention.fused_attention(shifted, k, v, mask)
+    assert attention.launch_count() == before
+
+
 def test_kernel_rejects_what_it_does_not_take_on_card(card):
     q, k, v, mask = make_qkv(1, 2, 4, 8, 8, 16, 1, torch.float32, card)
     before = attention.launch_count()

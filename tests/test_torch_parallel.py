@@ -39,7 +39,6 @@ import dataclasses
 import glob
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -48,6 +47,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+
+from tests.torch_ranks import start_ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,14 +124,6 @@ print(f"CHILD_OK_{{rank}}", flush=True)
 """
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def run_ranks(mode, out, case, timeout=300):
     """The two ranks of ``mode`` over ``case`` (saved for them under
     ``out``); their outputs."""
@@ -140,23 +133,17 @@ def run_ranks(mode, out, case, timeout=300):
         f.write(CHILD.format(repo=REPO))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, script, mode, str(r), str(port), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(out)) for r in (0, 1)]
+    def start(port):
+        return [subprocess.Popen(
+            [sys.executable, script, mode, str(r), str(port), str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=str(out)) for r in (0, 1)]
+
     outs = []
-    for p in procs:
-        try:
-            text, _ = p.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        outs.append(text)
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{text}"
+    for r, (code, text, _) in enumerate(start_ranks(start, timeout)):
+        assert code == 0, f"rank {r} failed:\n{text}"
         assert f"CHILD_OK_{r}" in text, text
+        outs.append(text)
     return outs
 
 
