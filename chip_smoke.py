@@ -463,52 +463,92 @@ def sass_count(build, name, part, opcode):
     return counts
 
 
+# the wgmma designs' kernels: K1's attention_fwd_wgmma_kernel<NK, DT> and
+# K2's attention_bwd_wgmma_kernel<NK, DT, ROUND>
+WGMMA_KERNELS = {"attention_fwd": "K1", "attention_bwd": "K2"}
+
+
 def wgmma_instance(fn):
-    """'NK n, Dp d' of a mangled attention_fwd_wgmma_kernel<NK, DT>."""
+    """(NK, 8 DT, mode) of a mangled wgmma kernel: 'NK n, Dp d' and, for
+    K2's, its attention mode."""
     import re
-    nk, dt = re.search(r"wgmma_kernelILi(\d+)ELi(\d+)E", fn).groups()
-    return f"NK {nk}, Dp {8 * int(dt)}"
+    nk, dt, rnd = re.search(r"wgmma_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
+                            fn).groups()
+    mode = "" if rnd is None else (DEFAULT if rnd == "1" else PALLAS)
+    return int(nk), 8 * int(dt), mode
 
 
 def wgmma_build_report(build, attention, failures):
-    """K1's wgmma instances as built: each one's registers, stack and spill
-    bytes from ptxas (a spill fails) and its HGMMA instructions in the
-    library's SASS (none fails). A checkout without the design says so."""
-    if not hasattr(attention, "fwd_design"):
-        say("build", "attention_fwd: this checkout's K1 has no wgmma design")
-        return
-    report = ptxas_report(build.compiler_report("attention_fwd"), "wgmma")
-    hgmma = sass_count(build, "attention_fwd", "wgmma", "HGMMA")
-    if not report:
-        failures.append("build: ptxas reported no wgmma instance of K1")
-    parts = []
-    for fn, r in sorted(report.items(), key=lambda kv: [
-            int(x.strip(",")) for x in wgmma_instance(kv[0]).split()[1::2]]):
-        what = wgmma_instance(fn)
-        spills, n = r.get("spill_bytes"), hgmma.get(fn, 0)
-        if spills != 0:
-            failures.append(f"build: K1 wgmma {what} spills {spills} bytes")
-        if n < 1:
-            failures.append(f"build: K1 wgmma {what} has no HGMMA in its SASS")
-        parts.append(f"{what}: {r.get('registers')} registers, {spills} spill "
-                     f"bytes, {r.get('stack_bytes')} stack bytes, {n} HGMMA")
-    say("build", "attention_fwd wgmma instances (NK keys, Dp head columns; "
-                 "ptxas, cuobjdump -sass): " + "; ".join(parts))
+    """The wgmma instances of K1 and K2 as built: each one's registers,
+    stack and spill bytes from ptxas (a spill fails) and its HGMMA
+    instructions in the library's SASS (none fails). A checkout without a
+    kernel's design says so."""
+    for name, tag in WGMMA_KERNELS.items():
+        if not hasattr(attention, "fwd_design" if tag == "K1"
+                       else "bwd_design"):
+            say("build", f"{name}: this checkout's {tag} has no wgmma design")
+            continue
+        report = ptxas_report(build.compiler_report(name), "wgmma")
+        hgmma = sass_count(build, name, "wgmma", "HGMMA")
+        if not report:
+            failures.append(f"build: ptxas reported no wgmma instance of "
+                            f"{tag}")
+        parts = []
+        for fn, r in sorted(report.items(),
+                            key=lambda kv: wgmma_instance(kv[0])):
+            nk, dp, mode = wgmma_instance(fn)
+            what = f"NK {nk}, Dp {dp}" + (f", {mode}" if mode else "")
+            spills, n = r.get("spill_bytes"), hgmma.get(fn, 0)
+            if spills != 0:
+                failures.append(f"build: {tag} wgmma {what} spills {spills} "
+                                f"bytes")
+            if n < 1:
+                failures.append(f"build: {tag} wgmma {what} has no HGMMA in "
+                                f"its SASS")
+            parts.append(f"{what}: {r.get('registers')} registers, {spills} "
+                         f"spill bytes, {r.get('stack_bytes')} stack bytes, "
+                         f"{n} HGMMA")
+        say("build", f"{name} wgmma instances (NK keys, Dp head columns; "
+                     f"ptxas, cuobjdump -sass): " + "; ".join(parts)
+            + "; ptxas notes on wgmma: "
+            + (wgmma_notes(build.compiler_report(name)) or "none"))
 
 
-def wgmma_occupancy(build, failures):
-    """K1's wgmma design at the flagship shapes at B rows: {shape name:
-    (shared memory bytes, warps, blocks per SM)}, and its line: blocks
-    per SM and waves over the card's SMs. 64-row warpgroup tiles, two a
-    block above 64 query rows."""
+def wgmma_notes(log):
+    """ptxas' performance notes on wgmma (C75xx: wgmma serialized, or
+    warpgroup.arrive injected) in an nvcc report: each note's code and
+    text, and how many of its wgmma instances it names, how often."""
+    import re
+    seen = {}
+    for line in log.splitlines():
+        m = re.search(r"\((C75\d\d)\) (.*?) in (?:around line \d+ by compiler "
+                      r"to allow use of registers in GMMA in )?(?:the )?"
+                      r"function '([^']*wgmma[^']*)'", line)
+        if m:
+            code, text, fn = m.groups()
+            text = re.sub(r" in around line \d+.*", "", text)
+            count, fns = seen.setdefault((code, text), [0, set()])
+            seen[(code, text)][0] = count + 1
+            fns.add(fn)
+    return "; ".join(f"{code} {text} ({n} notes, {len(fns)} instances)"
+                     for (code, text), (n, fns) in sorted(seen.items()))
+
+
+def wgmma_occupancy(build, attention, failures):
+    """The wgmma designs at the flagship shapes: {(kernel, shape name,
+    mode): (shared memory bytes, warps, blocks per SM)}, and their lines:
+    blocks per SM and waves over the card's SMs, K1 at B rows (64-row
+    warpgroup tiles, two a block above 64 query rows), K2 at B_TRAIN (one
+    block a (batch, head), a warpgroup a 64-key slab)."""
     import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {}
     lib = build.load("attention_fwd")
     for fn in (lib.attention_fwd_wgmma_smem,
                lib.attention_fwd_wgmma_blocks_per_sm):
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    occ, parts = {}, []
+    parts = []
     for kname, (H, Lq, Lk, D) in SHAPES.items():
         smem = lib.attention_fwd_wgmma_smem(Lq, Lk, D)
         per_sm = lib.attention_fwd_wgmma_blocks_per_sm(Lq, Lk, D)
@@ -517,12 +557,40 @@ def wgmma_occupancy(build, failures):
             failures.append(f"attention_fwd wgmma occupancy of {kname}: "
                             f"{smem} bytes, {per_sm} blocks")
             continue
-        occ[kname] = (smem, 4 * nwg, per_sm)
+        occ[("fwd", kname, DEFAULT)] = (smem, 4 * nwg, per_sm)
         blocks = B * H * -(-Lq // (64 * nwg))
         parts.append(f"{kname} {smem / 1024:.1f} KB, {4 * nwg} warps, "
                      f"{per_sm} blocks, {blocks / (per_sm * sms):.2f} waves")
     say("build", f"attention_fwd wgmma per block (bf16, {DEFAULT}) on {sms} "
                  f"SMs at B = {B}: " + "; ".join(parts))
+    if not hasattr(attention, "bwd_design"):
+        return occ
+    lib = build.load("attention_bwd")
+    lib.attention_bwd_wgmma_smem.argtypes = [ctypes.c_int] * 4
+    lib.attention_bwd_wgmma_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    for fn in (lib.attention_bwd_wgmma_smem,
+               lib.attention_bwd_wgmma_blocks_per_sm):
+        fn.restype = ctypes.c_int
+    parts = []
+    for kname, (H, Lq, Lk, D) in SHAPES.items():
+        for mode in (DEFAULT, PALLAS):
+            if attention.bwd_design(torch.bfloat16, mode, Lk, D) != "wgmma":
+                continue
+            smem = lib.attention_bwd_wgmma_smem(Lq, Lk, D,
+                                                int(mode == DEFAULT))
+            per_sm = lib.attention_bwd_wgmma_blocks_per_sm(
+                Lq, Lk, D, int(mode == DEFAULT))
+            nwg = 2 if Lk > 64 else 1
+            if smem < 1 or per_sm < 1:
+                failures.append(f"attention_bwd wgmma occupancy of {kname} "
+                                f"{mode}: {smem} bytes, {per_sm} blocks")
+                continue
+            occ[("bwd", kname, mode)] = (smem, 4 * nwg, per_sm)
+            parts.append(f"{kname} {mode} {smem / 1024:.1f} KB, {4 * nwg} "
+                         f"warps, {per_sm} blocks, "
+                         f"{B_TRAIN * H / (per_sm * sms):.2f} waves")
+    say("build", f"attention_bwd wgmma per block (bf16) on {sms} SMs at B = "
+                 f"{B_TRAIN}: " + "; ".join(parts))
     return occ
 
 
@@ -719,7 +787,10 @@ def kernel_times(attention):
                     "fwd_small": k1_small, "fwd_small_wall_us": k1_small_us,
                     "fwd_design": attention.fwd_design(
                         dtype, mode.get("mode", DEFAULT), Lk, D)
-                    if hasattr(attention, "fwd_design") else "mma.sync"}
+                    if hasattr(attention, "fwd_design") else "mma.sync",
+                    "bwd_design": attention.bwd_design(
+                        dtype, mode.get("mode", DEFAULT), Lk, D)
+                    if hasattr(attention, "bwd_design") else "mma.sync"}
     return ms
 
 
@@ -956,8 +1027,11 @@ def check_bwd_kernel(attention, name, shape, failures):
                 attention.fused_attention(*leaves, mask, mode=m), leaves, gr),
                 want) for m in (DEFAULT, PALLAS))
             hold_share(f"K2 {name}", "K2", *sh, failures)
-        rows.append((kernel_row("bwd", name, dtype, mode, worst, times,
-                                flops, nbytes), flops, nbytes, rnd, sh))
+        row = kernel_row("bwd", name, dtype, mode, worst, times, flops,
+                         nbytes)
+        if hasattr(attention, "bwd_design"):
+            row["design"] = attention.bwd_design(dtype, mode, Lk, D)
+        rows.append((row, flops, nbytes, rnd, sh))
 
     # out is linear in v: <out, C> = <v, dv> only with the forward's mask
     q, k, v, gr, mask = inputs(torch.float32, False)
@@ -5036,16 +5110,17 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
     """Phase 3: every kernel against its plain version, timed; the rows of
     the kernels' JSON line by (kernel, shape, dtype)."""
     import torch
-    occ = (wgmma_occupancy(build, failures)
-           if hasattr(attention, "fwd_design") else {})
+    wg_occ = (wgmma_occupancy(build, attention, failures)
+              if hasattr(attention, "fwd_design") else {})
     fwd_rows = {}
     for kname, shape in SHAPES.items():
         for row, flops, nbytes, lse_err, rnd, sh in check_kernel(
                 attention, kname, shape, failures):
             fwd_rows[(kname, row["dtype"], row["mode"])] = row
-            if row.get("design") == "wgmma" and kname in occ:
+            if row.get("design") == "wgmma" and ("fwd", kname,
+                                                 row["mode"]) in wg_occ:
                 row["smem_bytes"], row["warps"], row["blocks_per_sm"] = \
-                    occ[kname]
+                    wg_occ[("fwd", kname, row["mode"])]
             say("kernel", f"K1 {kname} {row['dtype']} {row['mode']} "
                           f"({row.get('design', 'mma.sync')} design) "
                           f"(B, H, Lq, Lk, D) = "
@@ -5061,8 +5136,8 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                           + rounding_note(rnd) + share_note("K1", sh)
                           + f" ({card})")
 
-    # K2's layout: shared memory, warps (key slabs) and resident blocks per
-    # SM, and the waves of a B_TRAIN * H launch, in fp32 / bf16
+    # K2's mma.sync layout: shared memory, warps (key slabs) and resident
+    # blocks per SM, and the waves of a B_TRAIN * H launch, in fp32 / bf16
     lib = build.load("attention_bwd")
     for fn in (lib.attention_bwd_smem, lib.attention_bwd_blocks_per_sm,
                lib.attention_bwd_key_tile):
@@ -5084,15 +5159,20 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                    f"{per_sm[0]}/{per_sm[1]} blocks, "
                    + "/".join(f"{B_TRAIN * H / (n * sms):.2f}"
                               for n in per_sm) + " waves")
-    say("build", f"attention_bwd per block (fp32/bf16, the {PALLAS} "
-                 f"instances) on {sms} SMs at B = {B_TRAIN}: "
+    say("build", f"attention_bwd mma.sync per block (fp32/bf16, the "
+                 f"{PALLAS} instances) on {sms} SMs at B = {B_TRAIN}: "
                  + "; ".join(occ))
     bwd_rows = {}
     for kname, shape in SHAPES.items():
         rows, ident = check_bwd_kernel(attention, kname, shape, failures)
         for row, flops, nbytes, rnd, sh in rows:
             bwd_rows[(kname, row["dtype"], row["mode"])] = row
+            if ("bwd", kname, row["mode"]) in wg_occ \
+                    and row.get("design") == "wgmma":
+                row["smem_bytes"], row["warps"], row["blocks_per_sm"] = \
+                    wg_occ[("bwd", kname, row["mode"])]
             say("kernel", f"K2 {kname} {row['dtype']} {row['mode']} "
+                          f"({row.get('design', 'mma.sync')} design) "
                           f"(B, H, Lq, Lk, D) = "
                           f"{(B_TRAIN, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
@@ -5179,7 +5259,7 @@ def main():
         build.load(kname)
         seconds, log = build.BUILD_LOG.get(kname, (0.0, "cached"))
         use = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-               if "registers" in ln or "smem" in ln]
+               if ("registers" in ln or "smem" in ln) and "(C75" not in ln]
         say("build", f"{kname} for sm_90a in {seconds:.1f} s (nvcc); "
                      f"{use}")
     say("build", f"{len(KERNELS)} kernels built and loaded in "
@@ -5190,7 +5270,8 @@ def main():
         ms = kernel_times(attention)
         for key, t in ms.items():
             say("times", f"{key}: K1 {t['fwd']:.4f} ms ({t['fwd_design']} "
-                         f"design), K2 {t['bwd']:.4f} ms; K1 at "
+                         f"design), K2 {t['bwd']:.4f} ms ({t['bwd_design']} "
+                         f"design); K1 at "
                          f"{SMALL_ROWS} rows {t['fwd_small']:.4f} ms, "
                          f"{t['fwd_small_wall_us']:.1f} us a call with the "
                          f"host ({card})")

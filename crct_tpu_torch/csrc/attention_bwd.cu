@@ -35,9 +35,41 @@
 // fp32 row), and 107 MB in bf16 (0.032 ms of bytes against 0.010 ms at 989
 // TFLOP/s: bytes bound the bf16 row).
 //
-// Design: one block per (batch, head), so dk and dv of a key and dq of a
+// Two designs; attention_bwd picks one by dtype, mode and shape alone
+// (attention_bwd_design), and a launch that fails raises, never falls back.
+// Both take one block per (batch, head), so dk and dv of a key and dq of a
 // query are each summed inside one block, without atomics, in a fixed
-// order: the result is deterministic. The block's W <= 8 warps take a key
+// order: the result is deterministic.
+//
+// The wgmma design (bf16 in both modes with Lk <= 128 and D a multiple of
+// 8: every bf16 train step at the flagship shapes), FlashAttention-3's
+// backward layout: a warpgroup owns 64 keys (two at Lk > 64, keys padded
+// with zeros by the tensor map). Thread 0 has TMA copy K and V of the
+// (batch, head) once, and Q and G a chunk of 64 queries at a time (3-D
+// tensor maps over [B*H, L, D], boxes of 64 columns in the 128-byte
+// swizzle that wgmma reads, as K1's design). Each chunk is taken in two
+// halves of 32 queries, so that a thread holds 16 + 16 accumulators of S
+// and dP at a time: each warpgroup takes S^T = K Q^T and dP^T = V G^T as
+// two wgmma m64n32k16 chains, both operands K-major from shared memory, and
+// forms P, the keep bits and P * dP in registers, each accumulator's (key,
+// query) giving its keep hash and mask, without branches. delta_i, summed
+// from those products: each warp's column sums into shared memory, then,
+// after a barrier, summed over the warps in a fixed order, the order of the
+// mma.sync design. Then dS = P * (dP - delta) in bf16 hi + lo and P * keep
+// (ROUND: bf16; -pallas: hi + lo) go to shared memory, transposed and
+// swizzled (rows of keys). After a barrier, one batch of products: dV +=
+// (P * keep)^T G and dK += dS^T Q with A the warpgroup's rows of those
+// tiles (K-major) and G, Q MN-major (their rows are queries), D/2 fp32
+// accumulators each over the chunks; dQ = dS K with A the dS^T tiles
+// (MN-major, the transpose bit that bf16 allows) and K MN-major, each
+// warpgroup taking its half of the head columns over every key, staged in
+// a swizzled tile and stored by TMA. dV and dK are stored by TMA through
+// the K and V tiles at the end. The TMA stores skip the rows past Lq or Lk
+// and the columns past D. A block is 4 or 8 warps with 67-108 KB of shared
+// memory at the flagship shapes (ROUND), two or three blocks an SM
+// (wg_min_blocks).
+//
+// The mma.sync design (fp32, and past 128 keys): the block's W <= 8 warps take a key
 // tile of 16 W keys (all of them at the flagship shapes), one 16-key slab a
 // warp, staged with K and V in shared memory by 16-byte cp.async copies.
 // For each tile of up to 64 query rows (Q, G and, over several key tiles,
@@ -62,6 +94,7 @@
 // another's products.
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -569,7 +602,430 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   return (int)cudaGetLastError();
 }
 
+
+// ---- the wgmma design (see the head of the file) ---------------------------
+
+constexpr int kWgRows = 64;   // keys of a warpgroup; query rows of a chunk
+constexpr int kWgKeys = 128;  // keys the design takes, at most: two warpgroups
+constexpr int kRow = 128;     // bytes of a swizzled row: 64 bf16
+
+// Shared memory of a block at NK keys (NK / 64 warpgroups) and 8 DT head
+// columns, by offset from a 1024-byte boundary: K and V (64-column slabs of
+// NK rows), Q and G of a 64-query chunk, dS^T of a chunk in bf16 hi and lo
+// and (P * keep)^T (ROUND: one bf16 tile; -pallas: hi and lo), each NK key
+// rows of 64 queries, the chunk's dQ staged for its TMA store; then each
+// warp's part of delta, the lse of two chunks, the key-only mask row and
+// the mbarriers.
+template <int NK, int DT, bool ROUND>
+struct WgLayout {
+  static constexpr int nwg = NK / kWgRows;
+  static constexpr int slabs = DT > 8 ? 2 : 1;
+  static constexpr int kv = slabs * NK * kRow;
+  static constexpr int chunk = slabs * kWgRows * kRow;
+  static constexpr int ds = NK * kRow;
+  static constexpr int off_k = 0, off_v = kv, off_q = 2 * kv, off_g = off_q + chunk,
+                       off_ds_hi = off_g + chunk, off_ds_lo = off_ds_hi + ds,
+                       off_p = off_ds_lo + ds, off_dq = off_p + (ROUND ? 1 : 2) * ds,
+                       off_part = off_dq + chunk, off_lse = off_part + 4 * nwg * kWgRows * 4,
+                       off_mask = off_lse + 2 * kWgRows * 4, off_bars = off_mask + NK * 4;
+  static constexpr size_t bytes = 1024 + off_bars + 2 * sizeof(uint64_t);
+};
+
+// Blocks an SM that an instance's registers are capped for: the
+// accumulators of a half chunk's S^T and dP^T (16 + 16 a thread) and of dV
+// and dK (4 DT each) stay live together; ptxas spills below these caps
+// (the build report).
+template <int NK, int DT>
+constexpr int wg_min_blocks() {
+  return NK == 64 ? (DT <= 8 ? 3 : 2) : (DT <= 6 ? 2 : 1);
+}
+
+template <int NK, int DT, bool ROUND>
+__global__ void __launch_bounds__(2 * NK, wg_min_blocks<NK, DT>())
+attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tg,
+                           const __grid_constant__ CUtensorMap tdq,
+                           const __grid_constant__ CUtensorMap tdk,
+                           const __grid_constant__ CUtensorMap tdv,
+                           const float* __restrict__ mask, const float* __restrict__ lse,
+                           int H, int Lq, int Lk, int Lm, float scale, float rate,
+                           float keep_scale, float keep_rcp, uint32_t seed, int hb) {
+  using namespace hopper;
+  using L = WgLayout<NK, DT, ROUND>;
+  constexpr int NWG = L::nwg;
+  constexpr int NQ8 = DT / NWG;  // dQ's 8-column groups a warpgroup takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the first 1024-byte boundary, as an offset into smem_raw: the compiler
+  // then addresses every tile below as shared memory (LDS, STS)
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sm + L::off_k;
+  unsigned char* sV = sm + L::off_v;
+  unsigned char* sQ = sm + L::off_q;
+  unsigned char* sG = sm + L::off_g;
+  unsigned char* sDsHi = sm + L::off_ds_hi;
+  unsigned char* sDsLo = sm + L::off_ds_lo;
+  unsigned char* sP = sm + L::off_p;  // -pallas: its lo part L::ds after
+  unsigned char* sDq = sm + L::off_dq;
+  float* sPart = reinterpret_cast<float*>(sm + L::off_part);  // [warp][query]
+  float* sLse = reinterpret_cast<float*>(sm + L::off_lse);    // [chunk % 2][query], log2 units
+  float* sMask = reinterpret_cast<float*>(sm + L::off_mask);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::off_bars);  // K and V; Q and G
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int nchunks = (Lq + kWgRows - 1) / kWgRows;
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+  const int gr = lane >> 2, tq4 = lane & 3;
+  const int gw = 4 * wg + (t >> 5);  // the warp's keys are 16 gw .. 16 gw + 15
+  const int key[2] = {16 * gw + gr, 16 * gw + gr + 8};
+
+  // Q and G of chunk c (thread 0)
+  auto load_chunk = [&](int c) {
+    mbar_expect_tx(&bars[1], 2 * L::chunk);
+    for (int s = 0; s < L::slabs; ++s) {
+      tma_load_3d(sQ + s * kWgRows * kRow, &tq, &bars[1], 64 * s, kWgRows * c, bh);
+      tma_load_3d(sG + s * kWgRows * kRow, &tg, &bars[1], 64 * s, kWgRows * c, bh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bars[0], 2 * L::kv);
+    for (int s = 0; s < L::slabs; ++s) {
+      tma_load_3d(sK + s * NK * kRow, &tk, &bars[0], 64 * s, 0, bh);
+      tma_load_3d(sV + s * NK * kRow, &tv, &bars[0], 64 * s, 0, bh);
+    }
+    load_chunk(0);
+  }
+  // the key-only mask row (-inf past the last key) and the first chunk's
+  // lse, while the copies are in flight
+  if (Lm == 1)
+    for (int j = threadIdx.x; j < NK; j += blockDim.x)
+      sMask[j] = j < Lk ? mask[(size_t)b * Lk + j] : -CUDART_INF_F;
+  if (threadIdx.x < kWgRows)
+    sLse[threadIdx.x] = (int)threadIdx.x < Lq ? lse[(size_t)bh * Lq + threadIdx.x] * kLog2e : 0.f;
+  __syncthreads();
+
+  const DropoutStream drop(seed, b, h, H, hb);
+  const bool dropout = rate > 0.f;
+  const float* mb = mask + (size_t)b * Lm * Lk;
+  // a key-only mask's values at the thread's two keys
+  const float mk[2] = {sMask[key[0]], sMask[key[1]]};
+  float dv[4 * DT], dk[4 * DT];
+#pragma unroll
+  for (int i = 0; i < 4 * DT; ++i) dv[i] = dk[i] = 0.f;
+  mbar_wait(&bars[0], 0);
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int q0 = kWgRows * c;
+    const float* cl = sLse + (c & 1) * kWgRows;
+    // the next chunk's lse, stored once this chunk's first barrier has
+    // ended the last chunk's reads of its buffer
+    const int nl = q0 + kWgRows + threadIdx.x;
+    const float lse_next =
+        threadIdx.x < kWgRows && nl < Lq ? lse[(size_t)bh * Lq + nl] * kLog2e : 0.f;
+    mbar_wait(&bars[1], c & 1);
+
+    // the chunk in two halves of 32 queries: fewer live registers
+#pragma unroll 1
+    for (int hq = 0; hq < 2; ++hq) {
+      const int h0 = 32 * hq;  // the half's first query in the chunk
+
+      // 1. S^T = K Q^T and dP^T = V G^T: the warpgroup's 64 keys by the
+      // half's 32 queries, D / 16 k-steps along the swizzled rows
+      float s[16], dp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT / 2; ++kk) {
+        const int at = (kk / 4) * NK * kRow + kWgRows * wg * kRow + (kk % 4) * 32;
+        const int bt = (kk / 4) * kWgRows * kRow + h0 * kRow + (kk % 4) * 32;
+        wgmma_ss_n32(s, desc_b128(sK + at, 16, 1024), desc_b128(sQ + bt, 16, 1024), 1);
+        wgmma_ss_n32(dp, desc_b128(sV + at, 16, 1024), desc_b128(sG + bt, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // 2. s <- P, dp <- P * dP * keep (ROUND: dP rounded to bf16, the
+      // kept ones divided in bf16 by bf16(1 - rate)), and the keep bits;
+      // without branches (P is 0 outside the keys and queries), and the
+      // keep hash only with dropout
+      uint32_t kept = 0;
+      auto probs = [&](auto with_dropout) {
+        constexpr bool DROP = decltype(with_dropout)::value;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // the lse (log2 units) of the thread's queries h0 + 8 i + 2 tq4 + e
+          const float2 l2 = *reinterpret_cast<const float2*>(&cl[h0 + 8 * i + 2 * tq4]);
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) {
+            const int ql = h0 + 8 * i + 2 * tq4 + (c4 & 1);  // query in the chunk
+            const int qi = q0 + ql, kj = key[c4 >> 1];
+            const bool in = kj < Lk && qi < Lq;
+            const float mv = Lm == 1 ? mk[c4 >> 1] : (in ? mb[(size_t)qi * Lk + kj] : 0.f);
+            // in log2 units, rounded as the forward kernel rounds it
+            const float sc = (s[4 * i + c4] * scale + mv) * kLog2e;
+            const float p = in ? exp2f(sc - (c4 & 1 ? l2.y : l2.x)) : 0.f;
+            bool keep = true;
+            if constexpr (DROP) keep = drop.keep(qi, kj, rate, keep_scale) != 0.f;
+            float pdp;
+            if constexpr (ROUND) {
+              const float d = round_bf16(dp[4 * i + c4]);
+              pdp = keep ? p * (DROP ? round_bf16(d * keep_rcp) : d) : 0.f;
+            } else {
+              pdp = keep ? p * (DROP ? dp[4 * i + c4] * keep_scale : dp[4 * i + c4]) : 0.f;
+            }
+            kept |= (uint32_t)keep << (4 * i + c4);
+            s[4 * i + c4] = p;
+            dp[4 * i + c4] = pdp;
+          }
+        }
+      };
+      if (dropout) probs(std::true_type{});
+      else probs(std::false_type{});
+
+      // 3. the warp's part of delta for each of the half's queries: a sum
+      // over its keys, the lane's two rows and then the eight lanes of a
+      // column
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = dp[4 * i + e] + dp[4 * i + 2 + e];
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 8);
+          x += __shfl_xor_sync(0xffffffffu, x, 16);
+          if (gr == 0) sPart[gw * kWgRows + h0 + 8 * i + 2 * tq4 + e] = x;
+        }
+      }
+      __syncthreads();  // every warp's part
+      if (hq == 0 && threadIdx.x < kWgRows)
+        sLse[((c + 1) & 1) * kWgRows + threadIdx.x] = lse_next;
+      // delta of the queries h0 + 8 (gr % 4) + 2 tq4 + e: the warps' parts
+      // summed in a fixed order; the lanes then trade them
+      float mine[2] = {0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < 4 * NWG; ++w) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            &sPart[w * kWgRows + h0 + 8 * (gr & 3) + 2 * tq4]);
+        mine[0] += x.x;
+        mine[1] += x.y;
+      }
+
+      // 4. dS = P * (dP * keep - delta) in bf16 hi + lo and (P * keep)
+      // (ROUND: P rounded to bf16, the kept ones divided in bf16 by
+      // bf16(1 - rate); -pallas: in bf16 hi + lo), transposed, into their
+      // swizzled tiles: rows of keys, 64 queries a row
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float dl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dl[e] = __shfl_sync(0xffffffffu, mine[e], 4 * i + tq4);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pv[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c4 = 2 * hh + e;
+            const float p = s[4 * i + c4];
+            ds[e] = dp[4 * i + c4] - p * dl[e];
+            const bool keep = (kept >> (4 * i + c4)) & 1u;
+            if constexpr (ROUND) {
+              const float pb = round_bf16(p);
+              pv[e] = keep ? (dropout ? round_bf16(pb * keep_rcp) : pb) : 0.f;
+            } else {
+              pv[e] = keep ? (dropout ? p * keep_scale : p) : 0.f;
+            }
+          }
+          // key[hh] % 8 = gr; 16-byte column group 4 hq + i
+          const int at = key[hh] * kRow + (((4 * hq + i) ^ gr) * 16) + 4 * tq4;
+          uint32_t hi, lo;
+          split_bf16(ds[0], ds[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sDsHi + at) = hi;
+          *reinterpret_cast<uint32_t*>(sDsLo + at) = lo;
+          if constexpr (ROUND) {
+            *reinterpret_cast<uint32_t*>(sP + at) = pack_bf16(pv[0], pv[1]);
+          } else {
+            split_bf16(pv[0], pv[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(sP + at) = hi;
+            *reinterpret_cast<uint32_t*>(sP + L::ds + at) = lo;
+          }
+        }
+      }
+    }
+
+    // 5. once every warp's tiles are in place, one batch of products:
+    //   dV += (P * keep)^T G and dK += dS^T Q over the k-steps that hold
+    //   queries: A the warpgroup's 64 key rows of the P and dS^T tiles
+    //   (K-major), G and Q MN-major (their rows are queries);
+    //   dQ = dS K for the chunk's queries and this warpgroup's 8 NQ8 head
+    //   columns over the k-steps that hold keys: A dS^T's tiles (MN-major:
+    //   their rows are keys), K MN-major, started NQ8 wg column groups
+    //   along its rows
+    // (thread 0: the last chunk's dQ store has read its staging tile)
+    if (threadIdx.x == 0) tma_store_wait();
+    fence_async_shared();
+    __syncthreads();
+    const int c0 = NQ8 * wg;
+    const unsigned char* kq = sK + (c0 / 8) * NK * kRow + (c0 % 8) * 16;
+    float dq[4 * NQ8];
+#pragma unroll
+    for (int i = 0; i < 4 * NQ8; ++i) dq[i] = 0.f;
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (q0 + 16 * kk < Lq) {
+        const int at = kWgRows * wg * kRow + kk * 32;
+        const uint64_t bg = desc_b128(sG + kk * 16 * kRow, kWgRows * kRow, 1024);
+        const uint64_t bq = desc_b128(sQ + kk * 16 * kRow, kWgRows * kRow, 1024);
+        if constexpr (!ROUND) wgmma_ss_nt<DT>(dv, desc_b128(sP + L::ds + at, 16, 1024), bg, 1);
+        wgmma_ss_nt<DT>(dv, desc_b128(sP + at, 16, 1024), bg, 1);
+        wgmma_ss_nt<DT>(dk, desc_b128(sDsLo + at, 16, 1024), bq, 1);
+        wgmma_ss_nt<DT>(dk, desc_b128(sDsHi + at, 16, 1024), bq, 1);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < NK / 16; ++ks) {
+      if (16 * ks < Lk) {
+        const uint64_t bk = desc_b128(kq + ks * 16 * kRow, NK * kRow, 1024);
+        wgmma_ss_tt<8 * NQ8>(dq, desc_b128(sDsLo + ks * 16 * kRow, NK * kRow, 1024), bk, 1);
+        wgmma_ss_tt<8 * NQ8>(dq, desc_b128(sDsHi + ks * 16 * kRow, NK * kRow, 1024), bk, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+
+    // 6. dQ (times scale) in bf16 through the staging tile to a TMA store
+    // that skips the rows past Lq and the columns past D; once every
+    // warpgroup's products are done, the next chunk's Q and G
+    store_acc_bf16<NQ8>(sDq, kWgRows, 0, c0, dq, scale);
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int sl = 0; sl < L::slabs; ++sl)
+        tma_store_3d(&tdq, sDq + sl * kWgRows * kRow, 64 * sl, q0, bh);
+      tma_store_commit();
+      if (c + 1 < nchunks) load_chunk(c + 1);
+    }
+  }
+
+  // 7. dK (times scale) and dV in bf16 through the warpgroup's rows of the
+  // K and V tiles (every product that reads them is done) to TMA stores
+  // that skip the keys past Lk and the columns past D
+  store_acc_bf16<DT>(sK, NK, kWgRows * wg, 0, dk, scale);
+  store_acc_bf16<DT>(sV, NK, kWgRows * wg, 0, dv, 1.f);
+  fence_async_shared();
+  named_barrier(1 + wg, 128);
+  if (t == 0) {
+    for (int sl = 0; sl < L::slabs; ++sl) {
+      const int at = sl * NK * kRow + kWgRows * wg * kRow;
+      tma_store_3d(&tdk, sK + at, 64 * sl, kWgRows * wg, bh);
+      tma_store_3d(&tdv, sV + at, 64 * sl, kWgRows * wg, bh);
+    }
+    tma_store_wait();
+  }
+}
+
+template <int NK, int DT, bool ROUND>
+int launch_wgmma_dt(const void* q, const void* k, const void* v, const float* mask,
+                    const void* g, const float* lse, void* dq, void* dk, void* dv, int B, int H,
+                    int Lq, int Lk, int D, int Lm, float scale, float rate, float keep_scale,
+                    float keep_rcp, int seed, int hb, cudaStream_t stream) {
+  // TMA takes 16-byte aligned tensors
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g | (uintptr_t)dq |
+       (uintptr_t)dk | (uintptr_t)dv) %
+          16 !=
+      0)
+    return (int)cudaErrorMisalignedAddress;
+  cudaError_t err = raise_smem_limit((const void*)attention_bwd_wgmma_kernel<NK, DT, ROUND>);
+  if (err != cudaSuccess) return (int)err;
+  using hopper::tensor_map;
+  CUtensorMap tq, tk, tv, tg, tdq, tdk, tdv;
+  const int BH = B * H;
+  if ((err = tensor_map(&tq, q, BH, Lq, D, kWgRows)) != cudaSuccess ||
+      (err = tensor_map(&tk, k, BH, Lk, D, NK)) != cudaSuccess ||
+      (err = tensor_map(&tv, v, BH, Lk, D, NK)) != cudaSuccess ||
+      (err = tensor_map(&tg, g, BH, Lq, D, kWgRows)) != cudaSuccess ||
+      (err = tensor_map(&tdq, dq, BH, Lq, D, kWgRows)) != cudaSuccess ||
+      (err = tensor_map(&tdk, dk, BH, Lk, D, kWgRows)) != cudaSuccess ||
+      (err = tensor_map(&tdv, dv, BH, Lk, D, kWgRows)) != cudaSuccess)
+    return (int)err;
+  const size_t smem = WgLayout<NK, DT, ROUND>::bytes;
+  attention_bwd_wgmma_kernel<NK, DT, ROUND><<<BH, 2 * NK, smem, stream>>>(
+      tq, tk, tv, tg, tdq, tdk, tdv, mask, lse, H, Lq, Lk, Lm, scale, rate, keep_scale,
+      keep_rcp, (uint32_t)seed, hb);
+  return (int)cudaGetLastError();
+}
+
+template <int NK_, int DT_>
+struct WgInstance {
+  static constexpr int NK = NK_, DT = DT_;
+};
+
+// f(WgInstance<NK, DT>{}) for the wgmma instance of (Lk, D): the keys
+// padded to NK = 64 or 128 (one or two warpgroups), the head columns to 8 DT
+template <typename F>
+int with_wgmma_instance(int Lk, int D, F&& f) {
+  const bool wide = Lk > kWgRows;
+  switch (head_tiles(D)) {
+    case 4: return wide ? f(WgInstance<128, 4>{}) : f(WgInstance<64, 4>{});
+    case 6: return wide ? f(WgInstance<128, 6>{}) : f(WgInstance<64, 6>{});
+    case 8: return wide ? f(WgInstance<128, 8>{}) : f(WgInstance<64, 8>{});
+    default: return wide ? f(WgInstance<128, 16>{}) : f(WgInstance<64, 16>{});
+  }
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, const void* g,
+                 const void* lse, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                 int D, int Lm, float scale, float rate, float keep_scale, float keep_rcp,
+                 int seed, int hb, int round_p, cudaStream_t stream) {
+  return with_wgmma_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    const float* m = static_cast<const float*>(mask);
+    const float* l = static_cast<const float*>(lse);
+    if (round_p)
+      return launch_wgmma_dt<I::NK, I::DT, true>(q, k, v, m, g, l, dq, dk, dv, B, H, Lq, Lk,
+                                                 D, Lm, scale, rate, keep_scale, keep_rcp,
+                                                 seed, hb, stream);
+    return launch_wgmma_dt<I::NK, I::DT, false>(q, k, v, m, g, l, dq, dk, dv, B, H, Lq, Lk, D,
+                                                Lm, scale, rate, keep_scale, keep_rcp, seed,
+                                                hb, stream);
+  });
+}
+
 }  // namespace
+
+// The design a launch takes: 0 the mma.sync instance over one key tile
+// (fp32, and bf16 where the wgmma design does not take it), 1 the mma.sync
+// instance over several key tiles (Lk above kMaxKeyTile: delta from g . out,
+// dq summed in the dq_acc scratch), 2 the wgmma design (bf16 in either mode
+// with Lk <= kWgKeys and D a multiple of 8, which TMA's 16-byte row strides
+// need); -1 on bad input.
+extern "C" int attention_bwd_design(int dtype, int round_p, int Lk, int D) {
+  if (Lk < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) return -1;
+  if (Lk > kMaxKeyTile) return 1;
+  return dtype == 1 && Lk <= kWgKeys && D % 8 == 0 ? 2 : 0;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q/g/o/dq
 // [B,H,Lq,D], k/v/dk/dv [B,H,Lk,D] in that dtype (o the forward's output),
@@ -578,8 +1034,10 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 // attention_bwd_key_tile(Lq, Lk, D, dtype), else ignored (may be null).
 // keep_scale is the fp32 1 / (1 - rate), keep_rcp the fp32
 // 1 / bf16(1 - rate); round_p (bf16 only: in fp32 the two modes are one
-// function) takes the VJP of the JAX default path. Returns the CUDA error
-// code of the launch (0 = launched).
+// function) takes the VJP of the JAX default path. The wgmma design
+// (attention_bwd_design) takes 16-byte aligned q, k, v, g, dq, dk and dv,
+// and neither o nor dq_acc. Returns the CUDA error code of the launch
+// (0 = launched).
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* mask, const void* g, const void* o,
                              const void* lse, void* dq, void* dk, void* dv,
@@ -591,6 +1049,10 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
       H % hb != 0 || (Lm != 1 && Lm != Lq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int design = attention_bwd_design(dtype, round_p, Lk, D);
+  if (design == 2)
+    return launch_wgmma(q, k, v, mask, g, lse, dq, dk, dv, B, H, Lq, Lk, D, Lm, scale, rate,
+                        keep_scale, keep_rcp, seed, hb, round_p, s);
   if (dtype == 0)
     return launch<float, false>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B, H, Lq,
                                 Lk, D, Lm, scale, rate, keep_scale, keep_rcp, seed, hb,
@@ -639,4 +1101,35 @@ extern "C" int attention_bwd_blocks_per_sm(int Lq, int Lk, int D, int dtype) {
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 32 * W, smem);
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Bytes of dynamic shared memory one block of the wgmma design takes at
+// (Lq, Lk, D) in the mode round_p (0 where the design takes no such launch).
+extern "C" int attention_bwd_wgmma_smem(int Lq, int Lk, int D, int round_p) {
+  if (Lq < 1 || attention_bwd_design(1, round_p, Lk, D) != 2) return 0;
+  return with_wgmma_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return round_p ? (int)WgLayout<I::NK, I::DT, true>::bytes
+                   : (int)WgLayout<I::NK, I::DT, false>::bytes;
+  });
+}
+
+// Blocks of the wgmma design at (Lq, Lk, D) in the mode round_p that one
+// SM holds at once, as the CUDA occupancy calculator gives them from the
+// kernel's registers, threads and shared memory; a negative CUDA error code
+// on failure.
+extern "C" int attention_bwd_wgmma_blocks_per_sm(int Lq, int Lk, int D, int round_p) {
+  if (Lq < 1 || attention_bwd_design(1, round_p, Lk, D) != 2)
+    return -(int)cudaErrorInvalidValue;
+  return with_wgmma_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    const void* fn = round_p ? (const void*)attention_bwd_wgmma_kernel<I::NK, I::DT, true>
+                             : (const void*)attention_bwd_wgmma_kernel<I::NK, I::DT, false>;
+    cudaError_t err = raise_smem_limit(fn);
+    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 2 * I::NK,
+                                                        attention_bwd_wgmma_smem(Lq, Lk, D, round_p));
+    return err == cudaSuccess ? blocks : -(int)err;
+  });
 }

@@ -68,8 +68,6 @@
 // second for P = exp(s - m) / sum, rounded, and O += P V in one bf16
 // product (no low part).
 
-#include <dlfcn.h>
-
 #include "attention_common.cuh"
 #include "hopper.cuh"
 
@@ -600,38 +598,6 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, from the libcuda the process has loaded
-// (a host function: it encodes, it does not touch the card)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// the tensor map of a contiguous bf16 [BH, L, D] tensor at p: boxes of 64
-// columns by `rows` rows of one (batch, head), 128-byte swizzled
-cudaError_t tensor_map(CUtensorMap* map, const void* p, int BH, int L, int D, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // warpgroups a block of the wgmma design takes for Lq query rows
 int wg_count(int Lq) { return Lq > kWgRows ? 2 : 1; }
 
@@ -645,6 +611,7 @@ int launch_wgmma_dt(const void* q, const void* k, const void* v, const float* ma
     return (int)cudaErrorMisalignedAddress;
   cudaError_t err = raise_smem_limit<attention_fwd_wgmma_kernel<NK, DT>>();
   if (err != cudaSuccess) return (int)err;
+  using hopper::tensor_map;
   CUtensorMap tq, tk, tv, to;
   const int BH = B * H;
   if ((err = tensor_map(&tq, q, BH, Lq, D, kWgRows)) != cudaSuccess ||

@@ -1,19 +1,28 @@
-// Hopper (sm_90a) building blocks of the attention forward's wgmma design
-// (attention_fwd.cu): mbarriers, TMA tensor copies between global and
-// shared memory, wgmma descriptors and the warpgroup products it issues.
+// Hopper (sm_90a) building blocks of the attention kernels' wgmma designs
+// (attention_fwd.cu, attention_bwd.cu): mbarriers, TMA tensor maps and the
+// copies between global and shared memory they describe, wgmma descriptors
+// and the warpgroup products it issues, and stores of accumulators into
+// swizzled tiles.
 //
 // Shared-memory tiles are bf16 matrices of 64-column (128-byte) rows in
 // the 128-byte swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and
 // wgmma reads (descriptor layout 1): the 16-byte chunk c of row r lies at
 // r * 128 + ((c ^ (r % 8)) * 16), in atoms of 8 rows (1024 bytes), so a
-// tile starts on a 1024-byte boundary. A K-major operand (Q or K: the
-// product's k index along the row) is addressed one 16-element k-step at a
-// time by moving the descriptor's start 32 bytes along the row; an
-// MN-major one (V in P V: its rows are the k index) 16 rows (2048 bytes)
-// at a time.
+// tile starts on a 1024-byte boundary; wider tiles are 64-column slabs
+// side by side. A K-major operand (Q or K in q k^T: the product's k index
+// along the row) is addressed one 16-element k-step at a time by moving
+// the descriptor's start 32 bytes along the row; an MN-major one (V in
+// P V: its rows are the k index) 16 rows (2048 bytes) at a time, the
+// descriptor's leading offset the bytes between its slabs. A product that
+// takes only some of an MN-major operand's columns starts that many
+// bytes along the row (a multiple of 16): the swizzle is a function of
+// the address, so the columns stay where TMA put them.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -80,6 +89,11 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// close this thread's group of bulk stores issued so far
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // wait until this thread's bulk stores have read their shared memory
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -129,6 +143,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // fragment from registers (m64nNk16's A, 64 x 16) is mma.sync m16n8k16's
 // A for the warp's 16 rows, so the accumulators of columns 16 k .. 16 k +
 // 15 packed to bf16 pairs are A of k-step k as they lie.
+
+// d (64 x 32) = A B (+ d with scale_d): A 64 x 16 and B 16 x 32, both
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 // d (64 x 64) = A B (+ d with scale_d): A 64 x 16 and B 16 x 64, both
 // K-major in shared memory
@@ -238,6 +266,269 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 16) = A B (+ d with scale_d): A 64 x 16 and B 16 x 16, both
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n16(float (&d)[8], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 24) = A B (+ d with scale_d): A 64 x 16 and B 16 x 24, both
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n24(float (&d)[12], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32) = A B (+ d with scale_d): A 64 x 16 and B 16 x 32, both
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 48) = A B (+ d with scale_d): A 64 x 16 and B 16 x 48, both
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n48(float (&d)[24], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) = A B (+ d with scale_d): A 64 x 16 and B 16 x 64, both
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) = A B (+ d with scale_d): A 64 x 16 and B 16 x 128, both
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32) = A B (+ d with scale_d): A 64 x 16 K-major and B 16 x 32
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_nt_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 48) = A B (+ d with scale_d): A 64 x 16 K-major and B 16 x 48
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_nt_n48(float (&d)[24], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) = A B (+ d with scale_d): A 64 x 16 K-major and B 16 x 64
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_nt_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) = A B (+ d with scale_d): A 64 x 16 K-major and B 16 x 128
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_nt_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N) += A B with A and B both MN-major in shared memory (A's rows
+// the k index: a transposed operand, which bf16 allows), for the N the
+// attention kernels take
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  if constexpr (N == 16) wgmma_ss_tt_n16(d, a, b, scale_d);
+  else if constexpr (N == 24) wgmma_ss_tt_n24(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_ss_tt_n32(d, a, b, scale_d);
+  else if constexpr (N == 48) wgmma_ss_tt_n48(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_tt_n64(d, a, b, scale_d);
+  else {
+    static_assert(N == 128, "no such product");
+    wgmma_ss_tt_n128(d, a, b, scale_d);
+  }
+}
+
+// d (64 x N) += A B with A K-major and B MN-major in shared memory, for
+// N = 8 DT
+template <int DT>
+__device__ __forceinline__ void wgmma_ss_nt(float (&d)[4 * DT], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  if constexpr (DT == 4) wgmma_ss_nt_n32(d, a, b, scale_d);
+  else if constexpr (DT == 6) wgmma_ss_nt_n48(d, a, b, scale_d);
+  else if constexpr (DT == 8) wgmma_ss_nt_n64(d, a, b, scale_d);
+  else {
+    static_assert(DT == 16, "no such product");
+    wgmma_ss_nt_n128(d, a, b, scale_d);
+  }
+}
+
+// ---- accumulators into swizzled tiles ---------------------------------------
+
+// byte offset of the 16-byte chunk c8 (8 bf16 columns) of row r in a tile
+// of 64-column slabs of `rows` rows each
+__device__ __forceinline__ int swizzled(int r, int c8, int rows) {
+  return (c8 / 8) * rows * 128 + r * 128 + (((c8 % 8) ^ (r & 7)) * 16);
+}
+
+// The accumulators d of this warpgroup's m64nN product (N = 8 N8), times
+// scale, as bf16 into a swizzled tile of `rows`-row slabs: the product's
+// row 0 at the tile's row r0, its column 0 at column 8 c0. Each warp's
+// stores touch 32 banks.
+template <int N8>
+__device__ __forceinline__ void store_acc_bf16(unsigned char* tile, int rows, int r0, int c0,
+                                               const float (&d)[4 * N8], float scale) {
+  const int t = threadIdx.x & 127;
+  const int rl = r0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int tq = t & 3;
+#pragma unroll
+  for (int dt = 0; dt < N8; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = rl + 8 * e;
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(d[4 * dt + 2 * e] * scale, d[4 * dt + 2 * e + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(tile + swizzled(r, c0 + dt, rows) + 4 * tq) = h;
+    }
+  }
+}
+
+// ---- tensor maps (host) -----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, from the libcuda the process has loaded
+// (a host function: it encodes, it does not touch the card)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of a contiguous bf16 [BH, L, D] tensor at p: boxes of 64
+// columns by `rows` rows of one (batch, head), 128-byte swizzled; a load
+// fills what lies outside the tensor with zeros, a store skips it
+inline cudaError_t tensor_map(CUtensorMap* map, const void* p, int BH, int L, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

@@ -67,7 +67,13 @@ and serve step at the flagship shapes) one pass over the whole key row on
 Hopper's ``wgmma`` and TMA copies; past 128 keys two ``mma.sync`` passes
 over the key tiles, the first for the rows' max and sum, so that it rounds
 the normalized P as JAX does; fp32 and ``PALLAS`` an ``mma.sync`` online
-softmax.
+softmax. K2 has two (:func:`bwd_design`): with bf16 inputs in either
+mode, up to 128 keys and D a multiple of 8 (every bf16 train step at the
+flagship shapes) a warpgroup a 64-key slab on ``wgmma`` and TMA copies, P
+and dS through shared memory for dv, dk and dq; else ``mma.sync``, over
+key tiles past 128 keys. A wgmma design takes 16-byte aligned tensors: a
+misaligned one raises (CUDA error 716) at its launch, which is not
+counted.
 """
 
 from __future__ import annotations
@@ -381,6 +387,24 @@ def fwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:
     if code not in FWD_DESIGNS:
         raise ValueError(f"no K1 design for {dtype}, Lk {Lk}, D {D}")
     return FWD_DESIGNS[code]
+
+
+# K2's designs, by the code csrc/attention_bwd.cu's attention_bwd_design
+# gives them
+BWD_DESIGNS = {0: "mma.sync", 1: "mma.sync key tiles", 2: "wgmma"}
+
+
+def bwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:
+    """The design of K2 that a launch at (dtype, mode, Lk, D) takes, as
+    the kernel's C entry picks it (it builds the kernel at first use)."""
+    from crct_tpu_torch.ops.build import load
+    fn = load("attention_bwd").attention_bwd_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    code = fn(_DTYPES[dtype], int(_rounds(dtype, mode)), Lk, D)
+    if code not in BWD_DESIGNS:
+        raise ValueError(f"no K2 design for {dtype}, Lk {Lk}, D {D}")
+    return BWD_DESIGNS[code]
 
 
 def _launch(q, k, v, mask, dropout_rate: float, seed: int, with_lse: bool,

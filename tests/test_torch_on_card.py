@@ -247,6 +247,114 @@ def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card):
     assert attention.launch_count() == before
 
 
+# K2's wgmma design (bf16, up to 128 keys, D a multiple of 8) at its edges:
+# query rows around its 64-query chunks (129 takes three, through both
+# buffers), keys around its one- and two-warpgroup instances (129 takes the
+# mma.sync design over key tiles), the head widths of each instance;
+# key-only and full masks, dropout 0 and 0.1, each bf16 mode the design
+# takes (WG_BWD_MODES). Held as chip_smoke.py holds K2 at the flagship
+# shapes: each gradient within 2e-2 of max(1, |grad|) and, in the default
+# mode, at most SHARE["K2"] (2 %) of the gradients' elements different from
+# the plain version's at all (about 1.5e-3 at the flagship shapes,
+# PERF.md). With one key dq and dk are zero in exact arithmetic (dS = P dP
+# (1 - P) with P = 1) and rounding noise in both, so there the share is not
+# held; nor past 128 keys, where the mma.sync design takes delta from
+# g . out and the plain version, given no output, from dP * P.
+WG_BWD_SHARE = 0.02
+WG_BWD_MODES = attention.MODES
+
+
+def wgmma_bwd_case(card, B, H, Lq, Lk, D, Lm, rate, mode, seed=0):
+    """(K2's gradients, the plain version's, the share of elements that
+    differ) for inputs made from ``seed``."""
+    q, k, v, mask = make_qkv(seed, B, H, Lq, Lk, D, Lm, torch.bfloat16, card)
+    g = torch.randn(q.shape, device=card,
+                    generator=torch.Generator(card).manual_seed(seed)
+                    ).to(torch.bfloat16)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = attention.fused_attention(q, k, v, mask, rate, 33, mode=mode)
+    before = attention.bwd_launch_count()
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert attention.bwd_launch_count() == before + 1
+    want = attention.attention_bwd_reference(q, k, v, mask, g, rate, 33,
+                                             mode=mode)
+    n = sum(w.numel() for w in want)
+    share = sum((a != w).sum().item() for a, w in zip(got, want)) / n
+    return got, want, share
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("Lk", [1, 9, 44, 64, 65, 124, 128, 129])
+@pytest.mark.parametrize("Lq", [1, 63, 64, 65, 124, 129])
+def test_wgmma_backward_matches_plain_on_card(card, Lq, Lk, D):
+    B, H = 4, 8
+    for mode in WG_BWD_MODES:
+        assert attention.bwd_design(torch.bfloat16, mode, Lk, D) == (
+            "wgmma" if Lk <= 128 else "mma.sync key tiles")
+        for full in (False, True):
+            for rate in (0.0, 0.1):
+                got, want, share = wgmma_bwd_case(
+                    card, B, H, Lq, Lk, D, Lq if full else 1, rate, mode,
+                    Lq * Lk + D)
+                for a, w in zip(got, want):
+                    assert a.dtype == torch.bfloat16
+                    tol = TOL[torch.bfloat16] * max(
+                        1.0, w.float().abs().max().item())
+                    torch.testing.assert_close(a.float(), w.float(),
+                                               atol=tol, rtol=0)
+                if mode == attention.ROUND_PROBS and 1 < Lk <= 128:
+                    assert share <= WG_BWD_SHARE, (mode, full, rate, share)
+
+
+def test_wgmma_backward_takes_the_flagship_bf16_launches_on_card(card):
+    """The bf16 backward launches at the flagship shapes take the wgmma
+    design in each mode it takes; fp32 keeps the mma.sync design and more
+    than 128 keys the mma.sync design over key tiles."""
+    for Lk, D in ((124, 48), (44, 64), (44, 32), (124, 32)):
+        for mode in attention.MODES:
+            assert attention.bwd_design(torch.bfloat16, mode, Lk, D) == (
+                "wgmma" if mode in WG_BWD_MODES else "mma.sync")
+            assert attention.bwd_design(torch.float32, mode, Lk, D) \
+                == "mma.sync"
+    for dtype in (torch.float32, torch.bfloat16):
+        assert attention.bwd_design(dtype, attention.ROUND_PROBS, 300, 64) \
+            == "mma.sync key tiles"
+    assert attention.bwd_design(torch.bfloat16, attention.ROUND_PROBS, 44,
+                                12) == "mma.sync"
+
+
+def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card):
+    """TMA reads 16-byte aligned tensors: a contiguous cotangent 2 bytes
+    into its storage raises at K2's launch, which is not counted, rather
+    than taking another design."""
+    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, torch.bfloat16, card)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = attention.fused_attention(q, k, v, mask)
+    flat = torch.empty(out.numel() + 1, dtype=out.dtype, device=card)
+    shifted = flat[1:].view(out.shape)
+    shifted.copy_(torch.randn_like(out))
+    before = attention.bwd_launch_count()
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        torch.autograd.grad(out, (q, k, v), shifted)
+    assert attention.bwd_launch_count() == before
+
+
+@pytest.mark.parametrize("mode", WG_BWD_MODES)
+def test_wgmma_backward_is_deterministic_on_card(card, mode):
+    """Two launches on the same inputs give the same bits: one block owns a
+    (batch, head), with no atomics and every sum in a fixed order."""
+    q, k, v, mask = make_qkv(6, 6, 16, 124, 124, 48, 1, torch.bfloat16, card)
+    g = torch.randn(q.shape, device=card,
+                    generator=torch.Generator(card).manual_seed(6)
+                    ).to(torch.bfloat16)
+    out, lse = attention.attention_forward(q, k, v, mask, 0.1, 8, mode=mode)
+    mask4 = mask.expand(6, 1, 1, 124).contiguous()
+    first, second = (attention._launch_bwd(q, k, v, mask4, g, out, lse, 0.1,
+                                           8, mode) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 def test_kernel_rejects_what_it_does_not_take_on_card(card):
     q, k, v, mask = make_qkv(1, 2, 4, 8, 8, 16, 1, torch.float32, card)
     before = attention.launch_count()
