@@ -269,8 +269,9 @@ KERNELS = ("attention_fwd", "attention_bwd", "roi_align_bwd")
 PHASES = ("kernel", "serve", "eval", "train", "cross", "detector", "ingest",
           "parallel", "weights", "proof", "bench", "tools")
 # the bench phase's flags: bench.py's default run, the roofline, and --all's
-# detector variants (the bf16 one launches K3 in bf16)
-BENCH_ARGV = ("--roofline", "--all")
+# detector variants (the bf16 one launches K3 in bf16), each section timed
+# in 2 windows (or passes) rather than 5 (3): the script's time limit
+BENCH_ARGV = ("--roofline", "--all", "--repeats", "2")
 # bench.py's keys of its default run with --roofline, under the port's names
 # (the peak-bound ones name the card), by the section that writes them
 BENCH_KEYS = {
@@ -463,18 +464,21 @@ def sass_count(build, name, part, opcode):
     return counts
 
 
-# the wgmma designs' kernels: K1's attention_fwd_wgmma_kernel<NK, DT> and
-# K2's attention_bwd_wgmma_kernel<NK, DT, ROUND>
+# the wgmma designs' kernels: K1's attention_fwd_wgmma_kernel<NK, DT, ROUND>
+# and K2's attention_bwd_wgmma_kernel<NK, DT, ROUND> (bf16) and
+# attention_bwd_wgmma_tf32_kernel<NK, DT> (fp32)
 WGMMA_KERNELS = {"attention_fwd": "K1", "attention_bwd": "K2"}
 
 
 def wgmma_instance(fn):
-    """(NK, 8 DT, mode) of a mangled wgmma kernel: 'NK n, Dp d' and, for
-    K2's, its attention mode."""
+    """(NK, 8 DT, mode) of a mangled wgmma kernel: 'NK n, Dp d' and its
+    attention mode ("" where the instance has none), "fp32" for a TF32
+    instance."""
     import re
-    nk, dt, rnd = re.search(r"wgmma_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
-                            fn).groups()
-    mode = "" if rnd is None else (DEFAULT if rnd == "1" else PALLAS)
+    tf, nk, dt, rnd = re.search(
+        r"wgmma(_tf32)?_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?", fn).groups()
+    mode = ("fp32" if tf else "" if rnd is None
+            else DEFAULT if rnd == "1" else PALLAS)
     return int(nk), 8 * int(dt), mode
 
 
@@ -536,62 +540,86 @@ def wgmma_notes(log):
 
 def wgmma_occupancy(build, attention, failures):
     """The wgmma designs at the flagship shapes: {(kernel, shape name,
-    mode): (shared memory bytes, warps, blocks per SM)}, and their lines:
-    blocks per SM and waves over the card's SMs, K1 at B rows (64-row
-    warpgroup tiles, two a block above 64 query rows), K2 at B_TRAIN (one
-    block a (batch, head), a warpgroup a 64-key slab)."""
+    mode): (shared memory bytes, warps, blocks per SM)} (K2's TF32 rows
+    under the mode "both", as the fp32 rows of the kernels' line), and
+    their lines: blocks per SM and waves over the card's SMs, K1 at B rows
+    (64-row warpgroup tiles, two a block above 64 query rows), K2 at
+    B_TRAIN (one block a (batch, head), a warpgroup a 64-key slab)."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     occ = {}
     lib = build.load("attention_fwd")
+    lib.attention_fwd_wgmma_smem.argtypes = [ctypes.c_int] * 3
+    lib.attention_fwd_wgmma_blocks_per_sm.argtypes = [ctypes.c_int] * 4
     for fn in (lib.attention_fwd_wgmma_smem,
                lib.attention_fwd_wgmma_blocks_per_sm):
-        fn.argtypes = [ctypes.c_int] * 3
-        fn.restype = ctypes.c_int
-    parts = []
-    for kname, (H, Lq, Lk, D) in SHAPES.items():
-        smem = lib.attention_fwd_wgmma_smem(Lq, Lk, D)
-        per_sm = lib.attention_fwd_wgmma_blocks_per_sm(Lq, Lk, D)
-        nwg = 2 if Lq > 64 else 1
-        if smem < 1 or per_sm < 1:
-            failures.append(f"attention_fwd wgmma occupancy of {kname}: "
-                            f"{smem} bytes, {per_sm} blocks")
-            continue
-        occ[("fwd", kname, DEFAULT)] = (smem, 4 * nwg, per_sm)
-        blocks = B * H * -(-Lq // (64 * nwg))
-        parts.append(f"{kname} {smem / 1024:.1f} KB, {4 * nwg} warps, "
-                     f"{per_sm} blocks, {blocks / (per_sm * sms):.2f} waves")
-    say("build", f"attention_fwd wgmma per block (bf16, {DEFAULT}) on {sms} "
-                 f"SMs at B = {B}: " + "; ".join(parts))
-    if not hasattr(attention, "bwd_design"):
-        return occ
-    lib = build.load("attention_bwd")
-    lib.attention_bwd_wgmma_smem.argtypes = [ctypes.c_int] * 4
-    lib.attention_bwd_wgmma_blocks_per_sm.argtypes = [ctypes.c_int] * 4
-    for fn in (lib.attention_bwd_wgmma_smem,
-               lib.attention_bwd_wgmma_blocks_per_sm):
         fn.restype = ctypes.c_int
     parts = []
     for kname, (H, Lq, Lk, D) in SHAPES.items():
         for mode in (DEFAULT, PALLAS):
-            if attention.bwd_design(torch.bfloat16, mode, Lk, D) != "wgmma":
+            if attention.fwd_design(torch.bfloat16, mode, Lk, D) != "wgmma":
                 continue
-            smem = lib.attention_bwd_wgmma_smem(Lq, Lk, D,
-                                                int(mode == DEFAULT))
-            per_sm = lib.attention_bwd_wgmma_blocks_per_sm(
+            smem = lib.attention_fwd_wgmma_smem(Lq, Lk, D)
+            per_sm = lib.attention_fwd_wgmma_blocks_per_sm(
                 Lq, Lk, D, int(mode == DEFAULT))
-            nwg = 2 if Lk > 64 else 1
+            nwg = 2 if Lq > 64 else 1
             if smem < 1 or per_sm < 1:
-                failures.append(f"attention_bwd wgmma occupancy of {kname} "
+                failures.append(f"attention_fwd wgmma occupancy of {kname} "
                                 f"{mode}: {smem} bytes, {per_sm} blocks")
                 continue
-            occ[("bwd", kname, mode)] = (smem, 4 * nwg, per_sm)
+            occ[("fwd", kname, mode)] = (smem, 4 * nwg, per_sm)
+            blocks = B * H * -(-Lq // (64 * nwg))
             parts.append(f"{kname} {mode} {smem / 1024:.1f} KB, {4 * nwg} "
                          f"warps, {per_sm} blocks, "
+                         f"{blocks / (per_sm * sms):.2f} waves")
+    say("build", f"attention_fwd wgmma per block (bf16) on {sms} SMs at B = "
+                 f"{B}: " + "; ".join(parts))
+    lib = build.load("attention_bwd")
+    for name in ("wgmma", "tf32"):
+        smem_fn = getattr(lib, f"attention_bwd_{name}_smem")
+        per_sm_fn = getattr(lib, f"attention_bwd_{name}_blocks_per_sm")
+        for fn in (smem_fn, per_sm_fn):
+            fn.argtypes = [ctypes.c_int] * (4 if name == "wgmma" else 3)
+            fn.restype = ctypes.c_int
+    parts = []
+    for kname, (H, Lq, Lk, D) in SHAPES.items():
+        for dtype, mode in ((torch.bfloat16, DEFAULT),
+                            (torch.bfloat16, PALLAS),
+                            (torch.float32, DEFAULT)):
+            design = attention.bwd_design(dtype, mode, Lk, D)
+            if design == "wgmma":
+                args = (Lq, Lk, D, int(mode == DEFAULT))
+                smem = lib.attention_bwd_wgmma_smem(*args)
+                per_sm = lib.attention_bwd_wgmma_blocks_per_sm(*args)
+            elif design == "wgmma tf32":
+                mode = "both"
+                smem = lib.attention_bwd_tf32_smem(Lq, Lk, D)
+                per_sm = lib.attention_bwd_tf32_blocks_per_sm(Lq, Lk, D)
+            else:
+                continue
+            nwg = 2 if Lk > 64 else 1
+            what = f"{kname} {str(dtype)[6:]} {mode}"
+            if smem < 1 or per_sm < 1:
+                failures.append(f"attention_bwd {design} occupancy of "
+                                f"{what}: {smem} bytes, {per_sm} blocks")
+                continue
+            occ[("bwd", kname, mode)] = (smem, 4 * nwg, per_sm)
+            parts.append(f"{what} ({design}) {smem / 1024:.1f} KB, "
+                         f"{4 * nwg} warps, {per_sm} blocks, "
                          f"{B_TRAIN * H / (per_sm * sms):.2f} waves")
-    say("build", f"attention_bwd wgmma per block (bf16) on {sms} SMs at B = "
+    say("build", f"attention_bwd wgmma per block on {sms} SMs at B = "
                  f"{B_TRAIN}: " + "; ".join(parts))
     return occ
+
+
+def design_note(row):
+    """A kernel row's design, with its block's shared memory, warps and
+    blocks per SM where the build report gave them."""
+    note = row.get("design", "mma.sync") + " design"
+    if "smem_bytes" in row:
+        note += (f": {row['smem_bytes'] / 1024:.1f} KB, {row['warps']} "
+                 f"warps, {row['blocks_per_sm']} blocks an SM")
+    return note
 
 
 def device_ms(fn, name=None, iters=20, warmup=3, tries=3):
@@ -5122,7 +5150,7 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                 row["smem_bytes"], row["warps"], row["blocks_per_sm"] = \
                     wg_occ[("fwd", kname, row["mode"])]
             say("kernel", f"K1 {kname} {row['dtype']} {row['mode']} "
-                          f"({row.get('design', 'mma.sync')} design) "
+                          f"({design_note(row)}) "
                           f"(B, H, Lq, Lk, D) = "
                           f"{(B, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
@@ -5168,11 +5196,11 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
         for row, flops, nbytes, rnd, sh in rows:
             bwd_rows[(kname, row["dtype"], row["mode"])] = row
             if ("bwd", kname, row["mode"]) in wg_occ \
-                    and row.get("design") == "wgmma":
+                    and row.get("design", "").startswith("wgmma"):
                 row["smem_bytes"], row["warps"], row["blocks_per_sm"] = \
                     wg_occ[("bwd", kname, row["mode"])]
             say("kernel", f"K2 {kname} {row['dtype']} {row['mode']} "
-                          f"({row.get('design', 'mma.sync')} design) "
+                          f"({design_note(row)}) "
                           f"(B, H, Lq, Lk, D) = "
                           f"{(B_TRAIN, *shape)}: max abs err "
                           f"{row['max_abs_err']:.3g} (tol "
@@ -5248,10 +5276,14 @@ def main():
                   f"{torch.backends.cudnn.allow_tf32}); the port of {tree}")
 
     t0 = time.perf_counter()
+    began = ["the build", t0]       # the phase under way and its start
 
     def mark(phase):
-        say("time", f"{phase} starts {time.perf_counter() - t0:.1f} s after "
-                    f"the build started")
+        now = time.perf_counter()
+        say("time", f"{began[0]} took {now - began[1]:.1f} s")
+        say("time", f"{phase} starts {now - t0:.1f} s after the build "
+                    f"started")
+        began[:] = [phase, now]
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
         list(pool.map(build.build, KERNELS))
@@ -5267,6 +5299,7 @@ def main():
     wgmma_build_report(build, attention, failures)
 
     if "times" in phases:
+        mark("times")
         ms = kernel_times(attention)
         for key, t in ms.items():
             say("times", f"{key}: K1 {t['fwd']:.4f} ms ({t['fwd_design']} "

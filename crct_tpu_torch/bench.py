@@ -866,6 +866,9 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tiny", action="store_true",
                     help="a small model and sizes (a rehearsal on the CPU)")
+    ap.add_argument("--repeats", type=int, default=None,
+                    help="timed windows (or passes) of each section, at "
+                         "most (default: the size's, 5 and 3)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)     # no card: raise before any work
     dist_params = {"device": args.device}
@@ -877,7 +880,12 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
     # extractor run them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    size = SIZES["tiny" if args.tiny else "full"]
+    size = dict(SIZES["tiny" if args.tiny else "full"])
+    if args.repeats is not None:
+        if args.repeats < 1:
+            ap.error("--repeats must be at least 1")
+        for key in ("repeats", "passes", "det_repeats"):
+            size[key] = min(size[key], args.repeats)
     cfg = tiny_config() if args.tiny else CRCTModelConfig()
     cfg.dtype = "bfloat16"
     cfg.use_pallas_attention = args.pallas

@@ -35,9 +35,9 @@
 // fp32 row), and 107 MB in bf16 (0.032 ms of bytes against 0.010 ms at 989
 // TFLOP/s: bytes bound the bf16 row).
 //
-// Two designs; attention_bwd picks one by dtype, mode and shape alone
+// Three designs; attention_bwd picks one by dtype, mode and shape alone
 // (attention_bwd_design), and a launch that fails raises, never falls back.
-// Both take one block per (batch, head), so dk and dv of a key and dq of a
+// All take one block per (batch, head), so dk and dv of a key and dq of a
 // query are each summed inside one block, without atomics, in a fixed
 // order: the result is deterministic.
 //
@@ -69,9 +69,34 @@
 // memory at the flagship shapes (ROUND), two or three blocks an SM
 // (wg_min_blocks).
 //
-// The mma.sync design (fp32, and past 128 keys): the block's W <= 8 warps take a key
-// tile of 16 W keys (all of them at the flagship shapes), one 16-key slab a
-// warp, staged with K and V in shared memory by 16-byte cp.async copies.
+// The TF32 wgmma design (fp32 with Lk <= 128, D a multiple of 4 and at
+// most 48: tf32_takes; every flagship shape but vision's D 64) keeps that
+// layout, a warpgroup a 64-key slab, on TF32 wgmma (m64nNk8) with fp32
+// accuracy: every product is 3xTF32, A_hi B_hi + A_hi B_lo + A_lo B_hi,
+// hi = tf32(x) and lo = tf32(x - hi) (the hardware reads TF32 operands'
+// top 19 bits only, so hi is stored rounded). TF32 takes K-major operands
+// only, and fp32 tiles are twice bf16's, so the operands are placed where
+// each product needs them: K and V arrive once by 16-byte cp.async copies
+// into padded rows, and K^T is written once in hi and lo; Q and G arrive a
+// chunk of 32 queries at a time (the next chunk's copies in flight), and
+// the threads write each chunk in hi and lo with rows of queries (B of
+// S^T = K Q^T and dP^T = V G^T) and transposed, rows of head columns (B of
+// dK and dV), the queries in the order of the register A operand's k
+// positions. S^T and dP^T take A (K, V) from registers, split as they are
+// loaded; P * keep and dS, formed in registers as in the bf16 design, are
+// the A operands of dV += (P keep)^T G and dK += dS^T Q as the accumulators
+// lie (no shuffle, no store), summed a chunk at a time in fresh
+// accumulators and then added (the mma.sync design's kFlush); dS also goes
+// to shared memory with rows of queries, for dQ^T = K^T dS^T, each
+// warpgroup over its own keys, the second's sum added by the first through
+// shared memory. delta keeps the mma.sync design's order. A block of 4 or
+// 8 warps takes 93-204 KB of shared memory at the flagship shapes, one or
+// two blocks an SM (the budget in PERF.md).
+//
+// The mma.sync design (fp32 where no wgmma design takes it, and past 128
+// keys): the block's W <= 8 warps take a key tile of 16 W keys (all of them
+// up to 128 keys), one 16-key slab a warp, staged with K and V in shared
+// memory by 16-byte cp.async copies.
 // For each tile of up to 64 query rows (Q, G and, over several key tiles,
 // the forward's output O staged the same way; over several query tiles the
 // next tile's copies are in flight meanwhile, in a second buffer):
@@ -1013,18 +1038,543 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, 
   });
 }
 
+
+// ---- the TF32 wgmma design (fp32; see the head of the file) -----------------
+
+constexpr int kTfChunk = 32;  // queries of a chunk
+
+// Whether the TF32 design takes (Lk, D): up to 128 keys, 16-byte rows and
+// D <= 48. At 128 keys wider heads do not fit an SM's shared memory; at 64
+// keys D = 64 (the flagship vision shape) fits, one warpgroup a block and
+// one block an SM, but measured no faster than the mma.sync design (PERF.md).
+__host__ __device__ inline bool tf32_takes(int Lk, int D) {
+  return Lk <= kWgKeys && D % 4 == 0 && D <= 48;
+}
+
+// Shared memory of a block at NK keys (NK / 64 warpgroups) and Dp = 8 DT
+// head columns, by offset from a 1024-byte boundary. The operands of the
+// products, each in TF32 hi and lo, K-major in 32-column (128-byte)
+// swizzled slabs: K^T (rows of head columns; dQ^T's A reads 64 rows from a
+// slab's start, those past Dp from what follows, which only its rows past
+// Dp take), Q and G of a chunk (rows of queries; S^T's and dP^T's B), Q^T
+// and G^T of a chunk (rows of head columns, the chunk's 32 queries in the
+// order of the register A operand's k positions; dK's and dV's B), dS of a
+// chunk (rows of queries; dQ^T's B). Then K and V and the next chunk's Q
+// and G as they arrive, in rows padded to Dp + 4 floats (the register A
+// operands' loads are free of bank conflicts), each warp's part of delta,
+// the lse of two chunks and the key-only mask row. The second warpgroup's
+// part of dQ^T goes to the first through the Q and G tiles, unused by then.
+template <int NK, int DT>
+struct TfLayout {
+  static constexpr int nwg = NK / kWgRows;
+  static constexpr int Dp = 8 * DT;
+  static constexpr int ldr = row_stride<float>(Dp);
+  static constexpr int kt_slab = Dp * kRow;
+  static constexpr int kt = (NK / 32) * kt_slab;
+  static constexpr int qtile = (Dp + 31) / 32 * kTfChunk * kRow;
+  static constexpr int qt = Dp * kRow;
+  static constexpr int ds = NK / 32 * kTfChunk * kRow;
+  static constexpr int raw = NK * ldr * 4;
+  static constexpr int stage = kTfChunk * ldr * 4;
+  static constexpr int off_kt_hi = 0, off_kt_lo = kt, off_q_hi = 2 * kt,
+                       off_q_lo = off_q_hi + qtile, off_g_hi = off_q_lo + qtile,
+                       off_g_lo = off_g_hi + qtile,
+                       off_qt_hi = off_g_lo + qtile, off_qt_lo = off_qt_hi + qt,
+                       off_gt_hi = off_qt_lo + qt, off_gt_lo = off_gt_hi + qt,
+                       off_ds_hi = off_gt_lo + qt, off_ds_lo = off_ds_hi + ds,
+                       off_k = off_ds_lo + ds, off_v = off_k + raw, off_sq = off_v + raw,
+                       off_sg = off_sq + stage, off_part = off_sg + stage,
+                       off_lse = off_part + 4 * nwg * kTfChunk * 4,
+                       off_mask = off_lse + 2 * kTfChunk * 4, end = off_mask + NK * 4;
+  static constexpr size_t bytes = 1024 + end;
+  static_assert(bytes <= (size_t)kMaxSmem, "the tiles exceed an SM's shared memory");
+};
+
+// x rounded to TF32 as tf32() (cvt.rna.tf32.f32) rounds it, to the nearest
+// with ties away from zero: half of the 13 dropped bits added to the
+// magnitude, then the bits cleared. Two integer operations in place of the
+// conversion instruction: the design rounds some 60,000 values a chunk, and
+// the conversion cost the text shape 6 % of its time (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as TF32 hi and lo (the TF32 rounding of what hi left over)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// x in TF32 hi and lo, 16 bytes each at byte `at` of the hi and lo tiles
+__device__ __forceinline__ void put_split4(unsigned char* hi, unsigned char* lo, int at,
+                                           const float (&x)[4]) {
+  uint4 h, l;
+  split_tf32(x[0], h.x, l.x);
+  split_tf32(x[1], h.y, l.y);
+  split_tf32(x[2], h.z, l.z);
+  split_tf32(x[3], h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + at) = h;
+  *reinterpret_cast<uint4*>(lo + at) = l;
+}
+
+// A (64 x 8, from registers) of rows [r0, r0 + 16) x columns [k0, k0 + 8)
+// of a row-major fp32 tile, split (load_a<true> with tf32_rna)
+__device__ __forceinline__ FragA load_a_tf32(const float* s, int ld, int r0, int k0, int lane) {
+  const float* p = s + (r0 + (lane >> 2)) * ld + k0 + (lane & 3);
+  FragA f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8 * ld], f.hi[1], f.lo[1]);
+  split_tf32(p[4], f.hi[2], f.lo[2]);
+  split_tf32(p[8 * ld + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A from the accumulators c of one 8-column group, split (a_from_c<true>
+// with tf32_rna): k position tq is column 2 tq, tq + 4 column 2 tq + 1
+__device__ __forceinline__ FragA a_from_c_tf32(const float (&c)[4]) {
+  FragA f;
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// Rows [0, n) of a row-major [., D] fp32 matrix at src into rows of ld
+// floats at dst, 16-byte asynchronous copies by the block's THREADS
+// threads, with columns [D, DP) and rows [n, ROWS) zeroed (D a multiple of
+// 4: a 16-byte chunk lies inside D or past it). The trip count is the
+// compiler's, so that it can batch each thread's copies.
+template <int ROWS, int DP, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, int D) {
+  constexpr int per_row = DP / 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * per_row; i += THREADS) {
+    const int r = i / per_row, c = 4 * (i % per_row);
+    if (r < n && c < D) cp_async16(dst + r * LD + c, src + (size_t)r * D + c);
+    else *reinterpret_cast<float4*>(dst + r * LD + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// c = a b, or with scale_d c += a b, in 3xTF32 (the small terms first): A
+// from registers, B's hi and lo tiles by their descriptors. A chain's first
+// product takes scale_d 0 rather than zeroed accumulators: no instruction
+// writes them between products, which would serialise every product
+// (ptxas C7515).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_3xtf32(float (&d)[N / 2], const FragA& a, uint64_t bh,
+                                                uint64_t bl, int scale_d) {
+  hopper::wgmma_rs_tf32<N>(d, a.lo, bh, scale_d);
+  hopper::wgmma_rs_tf32<N>(d, a.hi, bl, 1);
+  hopper::wgmma_rs_tf32<N>(d, a.hi, bh, 1);
+}
+
+template <int NK, int DT>
+__global__ void __launch_bounds__(2 * NK, 1)
+attention_bwd_wgmma_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ mask,
+                                const float* __restrict__ g, const float* __restrict__ lse,
+                                float* __restrict__ dq, float* __restrict__ dk,
+                                float* __restrict__ dv, int H, int Lq, int Lk, int D, int Lm,
+                                float scale, float rate, float keep_scale, uint32_t seed,
+                                int hb) {
+  using namespace hopper;
+  using L = TfLayout<NK, DT>;
+  constexpr int NWG = L::nwg;
+  constexpr int Dp = L::Dp;
+  constexpr int C = kTfChunk;
+  constexpr int T = 2 * NK;  // threads: every loop's trip count is known
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the first 1024-byte boundary, as an offset into smem_raw (shared-memory
+  // loads and stores, not generic ones)
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sKtHi = sm + L::off_kt_hi;
+  unsigned char* sKtLo = sm + L::off_kt_lo;
+  unsigned char* sQHi = sm + L::off_q_hi;
+  unsigned char* sQLo = sm + L::off_q_lo;
+  unsigned char* sGHi = sm + L::off_g_hi;
+  unsigned char* sGLo = sm + L::off_g_lo;
+  unsigned char* sQtHi = sm + L::off_qt_hi;
+  unsigned char* sQtLo = sm + L::off_qt_lo;
+  unsigned char* sGtHi = sm + L::off_gt_hi;
+  unsigned char* sGtLo = sm + L::off_gt_lo;
+  unsigned char* sDsHi = sm + L::off_ds_hi;
+  unsigned char* sDsLo = sm + L::off_ds_lo;
+  float* sK = reinterpret_cast<float*>(sm + L::off_k);
+  float* sV = reinterpret_cast<float*>(sm + L::off_v);
+  float* sStQ = reinterpret_cast<float*>(sm + L::off_sq);
+  float* sStG = reinterpret_cast<float*>(sm + L::off_sg);
+  float* sPart = reinterpret_cast<float*>(sm + L::off_part);  // [warp][query]
+  float* sLse = reinterpret_cast<float*>(sm + L::off_lse);    // [chunk % 2][query], log2 units
+  float* sRed = reinterpret_cast<float*>(sm + L::off_q_hi);   // [element][thread]
+  float* sMask = reinterpret_cast<float*>(sm + L::off_mask);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int nchunks = (Lq + C - 1) / C;
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  const int wl = t >> 5;
+  const int lane = t & 31;
+  const int gr = lane >> 2, tq4 = lane & 3;
+  const int gw = 4 * wg + wl;  // the warp's keys are 16 gw .. 16 gw + 15
+  const int key[2] = {16 * gw + gr, 16 * gw + gr + 8};
+  const float* qh = q + (size_t)bh * Lq * D;
+  const float* gh = g + (size_t)bh * Lq * D;
+
+  // K, then V and the first chunk's Q and G, as they are (zeros past Lk,
+  // Lq and D), in two groups of copies; the key-only mask row (-inf past
+  // the last key) and the first chunk's lse
+  stage_rows<NK, Dp, L::ldr, T>(sK, k + (size_t)bh * Lk * D, Lk, D);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage_rows<NK, Dp, L::ldr, T>(sV, v + (size_t)bh * Lk * D, Lk, D);
+  stage_rows<C, Dp, L::ldr, T>(sStQ, qh, Lq, D);
+  stage_rows<C, Dp, L::ldr, T>(sStG, gh, Lq, D);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::: "memory");
+  if (Lm == 1)
+    for (int j = threadIdx.x; j < NK; j += T)
+      sMask[j] = j < Lk ? mask[(size_t)b * Lk + j] : -CUDART_INF_F;
+  if (threadIdx.x < C)
+    sLse[threadIdx.x] = (int)threadIdx.x < Lq ? lse[(size_t)bh * Lq + threadIdx.x] * kLog2e : 0.f;
+  __syncthreads();
+  // K^T in TF32 hi + lo, while the second group lands: 4 keys of a row
+  // (head column d) a 16-byte chunk
+#pragma unroll
+  for (int i = threadIdx.x; i < Dp * (NK / 4); i += T) {
+    const int d = i % Dp, j4 = i / Dp;
+    const float x[4] = {sK[(4 * j4) * L::ldr + d], sK[(4 * j4 + 1) * L::ldr + d],
+                        sK[(4 * j4 + 2) * L::ldr + d], sK[(4 * j4 + 3) * L::ldr + d]};
+    put_split4(sKtHi, sKtLo, (j4 / 8) * L::kt_slab + d * kRow + (((j4 % 8) ^ (d & 7)) * 16), x);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const DropoutStream drop(seed, b, h, H, hb);
+  const bool dropout = rate > 0.f;
+  const float* mb = mask + (size_t)b * Lm * Lk;
+  // a key-only mask's values at the thread's two keys
+  const float mk[2] = {sMask[key[0]], sMask[key[1]]};
+  float dvt[Dp / 2], dkt[Dp / 2];  // dV and dK of the warpgroup's keys
+#pragma unroll
+  for (int i = 0; i < Dp / 2; ++i) dvt[i] = dkt[i] = 0.f;
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int q0 = C * c;
+    const float* cl = sLse + (c & 1) * C;
+    // the descriptor of the tiles' base, made anew each chunk, and of a
+    // tile at a byte offset from it: the compiler then holds no
+    // chunk-invariant descriptors in registers across the loop
+    uint64_t d0 = desc_b128(sm, 16, 1024);
+    asm volatile("" : "+l"(d0));
+    auto desc = [&](int off) { return d0 + (uint64_t)(off >> 4); };
+    // the next chunk's lse, stored once this chunk's first barrier has
+    // ended the last chunk's reads of its buffer
+    const int nl = q0 + C + threadIdx.x;
+    const float lse_next =
+        threadIdx.x < C && nl < Lq ? lse[(size_t)bh * Lq + nl] * kLog2e : 0.f;
+
+    // 1. the chunk's Q and G in TF32 hi + lo, with rows of queries (4
+    // columns a 16-byte chunk) and transposed, rows of head columns (the 4
+    // queries 8 i + e + 2 a, a = 0..3, of chunk 2 i + e: the k order of A
+    // from the accumulators, a_from_c_tf32)
+#pragma unroll
+    for (int i = threadIdx.x; i < 2 * C * (Dp / 4); i += T) {
+      const int m = i / (C * (Dp / 4));
+      const int r = i - m * (C * (Dp / 4));
+      const int qi = r / (Dp / 4), d4 = r % (Dp / 4);
+      const float4 x4 = *reinterpret_cast<const float4*>((m ? sStG : sStQ) + qi * L::ldr + 4 * d4);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      put_split4(m ? sGHi : sQHi, m ? sGLo : sQLo,
+                 (d4 / 8) * (C * kRow) + qi * kRow + (((d4 % 8) ^ (qi & 7)) * 16), x);
+    }
+#pragma unroll
+    for (int i = threadIdx.x; i < 2 * Dp * 8; i += T) {
+      const int m = i / (Dp * 8);
+      const int r = i - m * (Dp * 8);
+      const int d = r % Dp, ch = r / Dp;
+      const float* src = (m ? sStG : sStQ) + (8 * (ch >> 1) + (ch & 1)) * L::ldr + d;
+      const float x[4] = {src[0], src[2 * L::ldr], src[4 * L::ldr], src[6 * L::ldr]};
+      put_split4(m ? sGtHi : sQtHi, m ? sGtLo : sQtLo, d * kRow + ((ch ^ (d & 7)) * 16), x);
+    }
+    fence_async_shared();
+    __syncthreads();
+    // the next chunk's Q and G, in flight while this one is taken
+    if (c + 1 < nchunks) {
+      const int n1 = Lq - q0 - C;
+      stage_rows<C, Dp, L::ldr, T>(sStQ, qh + (size_t)(q0 + C) * D, n1, D);
+      stage_rows<C, Dp, L::ldr, T>(sStG, gh + (size_t)(q0 + C) * D, n1, D);
+    }
+
+    // 2. S^T = K Q^T and dP^T = V G^T: the warpgroup's 64 keys by the
+    // chunk's 32 queries, D / 8 k-steps, A (K, V) from registers; one chain
+    // and then the other (fewer live registers)
+    float s[16], dp[16];
+    auto chain = [&](float (&acc)[16], const float* raw, int bhi, int blo) {
+      FragA a[DT];
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) a[kk] = load_a_tf32(raw, L::ldr, 16 * gw, 8 * kk, lane);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) {
+        const int bt = (kk / 4) * (C * kRow) + (kk % 4) * 32;
+        wgmma_rs_3xtf32<C>(acc, a[kk], desc(bhi + bt), desc(blo + bt), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+    };
+    chain(s, sK, L::off_q_hi, L::off_q_lo);
+    chain(dp, sV, L::off_g_hi, L::off_g_lo);
+    fence_regs(s);
+    fence_regs(dp);
+
+    // 3. s <- P, dp <- P * dP * keep, and the keep bits; without branches
+    // (P is 0 outside the keys and queries), the keep hash only with
+    // dropout
+    uint32_t kept = 0;
+    auto probs = [&](auto with_dropout) {
+      constexpr bool DROP = decltype(with_dropout)::value;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // the lse (log2 units) of the thread's queries 8 i + 2 tq4 + e
+        const float2 l2 = *reinterpret_cast<const float2*>(&cl[8 * i + 2 * tq4]);
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const int qi = q0 + 8 * i + 2 * tq4 + (c4 & 1), kj = key[c4 >> 1];
+          const bool in = kj < Lk && qi < Lq;
+          const float mv = Lm == 1 ? mk[c4 >> 1] : (in ? mb[(size_t)qi * Lk + kj] : 0.f);
+          // in log2 units, rounded as the forward kernel rounds it
+          const float sc = (s[4 * i + c4] * scale + mv) * kLog2e;
+          const float p = in ? exp2f(sc - (c4 & 1 ? l2.y : l2.x)) : 0.f;
+          bool keep = true;
+          if constexpr (DROP) keep = drop.keep(qi, kj, rate, keep_scale) != 0.f;
+          const float pdp = keep ? p * (DROP ? dp[4 * i + c4] * keep_scale : dp[4 * i + c4]) : 0.f;
+          kept |= (uint32_t)keep << (4 * i + c4);
+          s[4 * i + c4] = p;
+          dp[4 * i + c4] = pdp;
+        }
+      }
+    };
+    if (dropout) probs(std::true_type{});
+    else probs(std::false_type{});
+
+    // 4. delta of each of the chunk's queries: each warp's sum over its
+    // keys (the lane's two rows, then the eight lanes of a column), then,
+    // after a barrier, the warps' parts in a fixed order (the mma.sync
+    // design's); the lanes trade them
+    if (threadIdx.x < C) sLse[((c + 1) & 1) * C + threadIdx.x] = lse_next;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = dp[4 * i + e] + dp[4 * i + 2 + e];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        if (gr == 0) sPart[gw * C + 8 * i + 2 * tq4 + e] = x;
+      }
+    }
+    __syncthreads();
+    float mine[2] = {0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < 4 * NWG; ++w) {
+      const float2 x = *reinterpret_cast<const float2*>(&sPart[w * C + 8 * (gr & 3) + 2 * tq4]);
+      mine[0] += x.x;
+      mine[1] += x.y;
+    }
+
+    // 5. dS = P * (dP * keep - delta) and P * keep as the A operands of dK's
+    // and dV's k-steps (the accumulators as they lie), in TF32 hi + lo; dS
+    // into its tiles, rows of queries
+    FragA pa[4], da[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float dl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) dl[e] = __shfl_sync(0xffffffffu, mine[e], 4 * i + tq4);
+      float pv[4], ds[4];
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const float p = s[4 * i + c4];
+        ds[c4] = dp[4 * i + c4] - p * dl[c4 & 1];
+        const bool keep = (kept >> (4 * i + c4)) & 1u;
+        pv[c4] = keep ? (dropout ? p * keep_scale : p) : 0.f;
+      }
+      pa[i] = a_from_c_tf32(pv);
+      da[i] = a_from_c_tf32(ds);
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const int kj = key[c4 >> 1], ql = 8 * i + 2 * tq4 + (c4 & 1);
+        const int at = (kj / 32) * (C * kRow) + ql * kRow + ((((kj % 32) >> 2) ^ (ql & 7)) * 16) +
+                       4 * (kj & 3);
+        const int e = 2 * (c4 & 1) + (c4 >> 1);  // a_from_c_tf32's place of element c4
+        *reinterpret_cast<uint32_t*>(sDsHi + at) = da[i].hi[e];
+        *reinterpret_cast<uint32_t*>(sDsLo + at) = da[i].lo[e];
+      }
+    }
+
+    // 6. this chunk's dV = (P * keep)^T G and dK = dS^T Q over the k-steps
+    // that hold queries (the first always does), in fresh accumulators added
+    // to the totals after (as the mma.sync design's kFlush): A from
+    // registers, B G^T's and Q^T's tiles
+    float tv[Dp / 2], tk[Dp / 2];
+    fence_regs(tv);
+    fence_regs(tk);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (q0 + 8 * i < Lq) {
+        wgmma_rs_3xtf32<Dp>(tv, pa[i], desc(L::off_gt_hi + 32 * i), desc(L::off_gt_lo + 32 * i),
+                            i > 0);
+        wgmma_rs_3xtf32<Dp>(tk, da[i], desc(L::off_qt_hi + 32 * i), desc(L::off_qt_lo + 32 * i),
+                            i > 0);
+      }
+    }
+    wgmma_commit();
+    fence_async_shared();
+    __syncthreads();  // every warp's dS in its tiles
+    wgmma_wait();
+    fence_regs(tv);
+    fence_regs(tk);
+#pragma unroll
+    for (int i = 0; i < Dp / 2; ++i) {
+      dvt[i] += tv[i];
+      dkt[i] += tk[i];
+    }
+
+    // 7. dQ^T = K^T dS^T for the chunk's queries over the warpgroup's own
+    // 64 keys: A K^T's tiles (64 rows, those past Dp unused), B dS's (both
+    // zero past Lk; a k-step skipped by a warpgroup's keys would branch on
+    // the thread's index, and ptxas then serialises every product, C7520);
+    // each group of 32 keys in its own accumulators, then summed in order;
+    // the second warpgroup's sum goes to the first through shared memory,
+    // which adds it and stores dQ times scale
+    float dqa[2][C / 2];
+    fence_regs(dqa[0]);
+    fence_regs(dqa[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kl = 0; kl < 8; ++kl) {
+      const int ks = 8 * wg + kl;  // k-step of 8 keys in the block
+      const int at = (ks / 4) * L::kt_slab + (ks % 4) * 32;
+      const int bt = (ks / 4) * (C * kRow) + (ks % 4) * 32;
+      const uint64_t ds_hi = desc(L::off_ds_hi + bt), kt_hi = desc(L::off_kt_hi + at);
+      wgmma_ss_tf32_n32(dqa[kl / 4], desc(L::off_kt_lo + at), ds_hi, kl % 4 > 0);
+      wgmma_ss_tf32_n32(dqa[kl / 4], kt_hi, desc(L::off_ds_lo + bt), 1);
+      wgmma_ss_tf32_n32(dqa[kl / 4], kt_hi, ds_hi, 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dqa[0]);
+    fence_regs(dqa[1]);
+    float* dqs = dqa[0];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) dqs[i] += dqa[1][i];
+    if constexpr (NWG == 2) {
+      if (wg == 1)
+#pragma unroll
+        for (int i = 0; i < C / 2; ++i) sRed[i * 128 + t] = dqs[i];
+      __syncthreads();
+      if (wg == 0)
+#pragma unroll
+        for (int i = 0; i < C / 2; ++i) dqs[i] += sRed[i * 128 + t];
+    }
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < C / 8; ++i) {
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const int d = 16 * wl + gr + 8 * (c4 >> 1);
+          const int qi = q0 + 8 * i + 2 * tq4 + (c4 & 1);
+          if (d < D && qi < Lq) dq[((size_t)bh * Lq + qi) * D + d] = dqs[4 * i + c4] * scale;
+        }
+      }
+    }
+
+    // the next chunk's Q and G have landed, and every warpgroup is done
+    // with this chunk's tiles
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // dK (times scale) and dV of the thread's keys
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int j = key[rh];
+    if (j >= Lk) continue;
+    float* dkr = dk + ((size_t)bh * Lk + j) * D;
+    float* dvr = dv + ((size_t)bh * Lk + j) * D;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      const int d = 8 * i + 2 * tq4;  // D is a multiple of 4: d + 1 < D
+      if (d >= D) continue;
+      *reinterpret_cast<float2*>(dkr + d) =
+          make_float2(dkt[4 * i + 2 * rh] * scale, dkt[4 * i + 2 * rh + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + d) =
+          make_float2(dvt[4 * i + 2 * rh], dvt[4 * i + 2 * rh + 1]);
+    }
+  }
+}
+
+template <int NK, int DT>
+int launch_tf32_dt(const void* q, const void* k, const void* v, const void* mask, const void* g,
+                   const void* lse, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                   int D, int Lm, float scale, float rate, float keep_scale, int seed, int hb,
+                   cudaStream_t stream) {
+  // 16-byte copies in, 8-byte stores out
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g | (uintptr_t)dq |
+       (uintptr_t)dk | (uintptr_t)dv) %
+          16 !=
+      0)
+    return (int)cudaErrorMisalignedAddress;
+  const void* fn = (const void*)attention_bwd_wgmma_tf32_kernel<NK, DT>;
+  cudaError_t err = raise_smem_limit(fn);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_wgmma_tf32_kernel<NK, DT><<<B * H, 2 * NK, TfLayout<NK, DT>::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(mask), static_cast<const float*>(g),
+      static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Lq, Lk, D, Lm, scale, rate, keep_scale, (uint32_t)seed, hb);
+  return (int)cudaGetLastError();
+}
+
+// f(WgInstance<NK, DT>{}) for the TF32 instance of (Lk, D) that tf32_takes:
+// the head columns padded to 8 DT, the keys to NK = 64 or 128; at Dp 48
+// always 128 (a one-warpgroup instance there needed more than 255
+// registers a thread and spilled; the second warpgroup's keys past Lk add
+// zeros)
+template <typename F>
+int with_tf32_instance(int Lk, int D, F&& f) {
+  if (head_tiles(D) > 4) return f(WgInstance<128, 6>{});
+  return Lk > kWgRows ? f(WgInstance<128, 4>{}) : f(WgInstance<64, 4>{});
+}
+
+int launch_tf32(const void* q, const void* k, const void* v, const void* mask, const void* g,
+                const void* lse, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                int D, int Lm, float scale, float rate, float keep_scale, int seed, int hb,
+                cudaStream_t stream) {
+  return with_tf32_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_tf32_dt<I::NK, I::DT>(q, k, v, mask, g, lse, dq, dk, dv, B, H, Lq, Lk, D, Lm,
+                                        scale, rate, keep_scale, seed, hb, stream);
+  });
+}
+
 }  // namespace
 
 // The design a launch takes: 0 the mma.sync instance over one key tile
-// (fp32, and bf16 where the wgmma design does not take it), 1 the mma.sync
-// instance over several key tiles (Lk above kMaxKeyTile: delta from g . out,
-// dq summed in the dq_acc scratch), 2 the wgmma design (bf16 in either mode
+// (fp32 and bf16 where no wgmma design takes it), 1 the mma.sync instance
+// over several key tiles (Lk above kMaxKeyTile: delta from g . out, dq
+// summed in the dq_acc scratch), 2 the wgmma design (bf16 in either mode
 // with Lk <= kWgKeys and D a multiple of 8, which TMA's 16-byte row strides
-// need); -1 on bad input.
+// need), 3 the TF32 wgmma design (fp32 where tf32_takes: every flagship
+// shape); -1 on bad input.
 extern "C" int attention_bwd_design(int dtype, int round_p, int Lk, int D) {
   if (Lk < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) return -1;
   if (Lk > kMaxKeyTile) return 1;
-  return dtype == 1 && Lk <= kWgKeys && D % 8 == 0 ? 2 : 0;
+  if (dtype == 1) return Lk <= kWgKeys && D % 8 == 0 ? 2 : 0;
+  return tf32_takes(Lk, D) ? 3 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q/g/o/dq
@@ -1034,8 +1584,8 @@ extern "C" int attention_bwd_design(int dtype, int round_p, int Lk, int D) {
 // attention_bwd_key_tile(Lq, Lk, D, dtype), else ignored (may be null).
 // keep_scale is the fp32 1 / (1 - rate), keep_rcp the fp32
 // 1 / bf16(1 - rate); round_p (bf16 only: in fp32 the two modes are one
-// function) takes the VJP of the JAX default path. The wgmma design
-// (attention_bwd_design) takes 16-byte aligned q, k, v, g, dq, dk and dv,
+// function) takes the VJP of the JAX default path. The wgmma designs
+// (attention_bwd_design) take 16-byte aligned q, k, v, g, dq, dk and dv,
 // and neither o nor dq_acc. Returns the CUDA error code of the launch
 // (0 = launched).
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
@@ -1053,6 +1603,9 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
   if (design == 2)
     return launch_wgmma(q, k, v, mask, g, lse, dq, dk, dv, B, H, Lq, Lk, D, Lm, scale, rate,
                         keep_scale, keep_rcp, seed, hb, round_p, s);
+  if (design == 3)
+    return launch_tf32(q, k, v, mask, g, lse, dq, dk, dv, B, H, Lq, Lk, D, Lm, scale, rate,
+                       keep_scale, seed, hb, s);
   if (dtype == 0)
     return launch<float, false>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B, H, Lq,
                                 Lk, D, Lm, scale, rate, keep_scale, keep_rcp, seed, hb,
@@ -1130,6 +1683,34 @@ extern "C" int attention_bwd_wgmma_blocks_per_sm(int Lq, int Lk, int D, int roun
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 2 * I::NK,
                                                         attention_bwd_wgmma_smem(Lq, Lk, D, round_p));
+    return err == cudaSuccess ? blocks : -(int)err;
+  });
+}
+
+// Bytes of dynamic shared memory one block of the TF32 wgmma design takes
+// at (Lq, Lk, D) (0 where the design takes no such launch).
+extern "C" int attention_bwd_tf32_smem(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_bwd_design(0, 0, Lk, D) != 3) return 0;
+  return with_tf32_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return (int)TfLayout<I::NK, I::DT>::bytes;
+  });
+}
+
+// Blocks of the TF32 wgmma design at (Lq, Lk, D) that one SM holds at
+// once, as the CUDA occupancy calculator gives them from the kernel's
+// registers, threads and shared memory; a negative CUDA error code on
+// failure.
+extern "C" int attention_bwd_tf32_blocks_per_sm(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_bwd_design(0, 0, Lk, D) != 3) return -(int)cudaErrorInvalidValue;
+  return with_tf32_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    const void* fn = (const void*)attention_bwd_wgmma_tf32_kernel<I::NK, I::DT>;
+    cudaError_t err = raise_smem_limit(fn);
+    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 2 * I::NK,
+                                                        TfLayout<I::NK, I::DT>::bytes);
     return err == cudaSuccess ? blocks : -(int)err;
   });
 }

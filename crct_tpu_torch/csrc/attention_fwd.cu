@@ -23,8 +23,8 @@
 // Three designs; attention_fwd picks one by dtype, mode and shape alone
 // (attention_fwd_design), and a launch that fails raises, never falls back.
 //
-// The wgmma design (bf16 with round_p, the default mode of every bf16
-// train, eval and serve step, with Lk <= 128 and D a multiple of 8): the
+// The wgmma design (bf16 with Lk <= 128 and D a multiple of 8, in both
+// modes: every bf16 train, eval and serve step at the flagship shapes): the
 // whole key row in one pass, as the TPU kernel's softmax (_probs) takes
 // it. A block of one or two warpgroups takes 64 query rows each of one
 // (batch, head). Thread 0 has TMA copy Q of the block, K and V of the
@@ -36,18 +36,23 @@
 // block. Each warpgroup then takes S = Q K^T for all keys (padded to NK =
 // 64 or 128) as one chain of D/16 wgmma m64nNKk16 from shared memory into
 // registers, the rows' exact max and sum from the accumulators (quad
-// shuffles), P = exp2(s - m) / sum rounded to bf16 with the keep bit, and
-// packs P to bf16 A fragments as the accumulators lie; O = P V is one chain
-// of wgmma m64nDk16 with A from registers and V as an MN-major operand. So
-// Q K^T, the mask and exp2 are each taken once. O goes through the
-// warpgroup's Q tile (swizzled, conflict-free) to a TMA store that clips
-// the rows past Lq and the columns past D. Registers: S 64 fp32 a thread
-// at NK 128, packed P 32, O D/2; two blocks of 8 warps an SM (one of 8 at
-// D > 64).
+// shuffles) and P = exp2(s - m) / sum, normalised in fp32. With round_p P
+// is rounded to bf16 and the kept ones divided in bf16 by bf16(1 - rate),
+// and packed to bf16 A fragments as the accumulators lie; O = P V is one
+// chain of wgmma m64nDk16 with A from registers and V as an MN-major
+// operand. In -pallas mode (no round_p) P times the fp32 keep multiplier
+// 1 / (1 - rate) is split into bf16 hi + lo (about 16 significant bits, as
+// the mma.sync instance splits it), packed the same way, and O = P_lo V +
+// P_hi V is one chain of two register-A products a k-step into the same
+// accumulators. So Q K^T, the mask and exp2 are each taken once. O goes
+// through the warpgroup's Q tile (swizzled, conflict-free) to a TMA store
+// that clips the rows past Lq and the columns past D. Registers: S 64 fp32
+// a thread at NK 128, packed P 32 (-pallas 64, as S is consumed), O D/2;
+// two blocks of 8 warps an SM (one of 8 at D > 64).
 //
-// The mma.sync designs (everything else: fp32, bf16 -pallas, and bf16 with
-// round_p past 128 keys): a block of W <= 8 warps takes 16 W query rows of one (batch,
-// head), each warp a 16-row slab. Q of the block and one tile of up to 128
+// The mma.sync designs (everything else: fp32, and bf16 past 128 keys or
+// with D not a multiple of 8): a block of W <= 8 warps takes 16 W query
+// rows of one (batch, head), each warp a 16-row slab. Q of the block and one tile of up to 128
 // keys of K and V at a time (all keys at the flagship shapes) are staged in
 // shared memory in the input dtype with
 // 16-byte cp.async copies, into rows padded so that the fragment loads are
@@ -417,7 +422,7 @@ struct WgLayout {
   }
 };
 
-template <int NK, int DT>
+template <int NK, int DT, bool ROUND>
 __global__ void __launch_bounds__(256, DT > 8 ? 1 : 2)
 attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -526,11 +531,13 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     inv[i] = 1.f / l[i];
   }
 
-  // P normalised and rounded to bf16, the kept ones divided in bf16 by
-  // bf16(1 - rate), packed as the A fragments of P V's k-steps
+  // P normalised; ROUND: rounded to bf16, the kept ones divided in bf16 by
+  // bf16(1 - rate); -pallas: times the fp32 keep multiplier and split into
+  // bf16 hi (pa) + lo (pl). Packed as the A fragments of P V's k-steps.
   const DropoutStream drop(seed, b, h, H, hb);
   const bool dropout = rate > 0.f;
   uint32_t pa[NK / 16][4];
+  uint32_t pl[ROUND ? 1 : NK / 16][4];
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk) {
 #pragma unroll
@@ -540,17 +547,24 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       float p[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        p[e] = round_bf16(s[4 * i + c + e] * inv[r & 1]);
-        if (dropout)
-          p[e] = drop.keep(row[r & 1], 8 * i + 2 * tq4 + e, rate, keep_scale) != 0.f
-                     ? round_bf16(p[e] * keep_rcp)
-                     : 0.f;
+        const int j = 8 * i + 2 * tq4 + e;
+        if constexpr (ROUND) {
+          p[e] = round_bf16(s[4 * i + c + e] * inv[r & 1]);
+          if (dropout)
+            p[e] = drop.keep(row[r & 1], j, rate, keep_scale) != 0.f ? round_bf16(p[e] * keep_rcp)
+                                                                     : 0.f;
+        } else {
+          p[e] = s[4 * i + c + e] * inv[r & 1];
+          if (dropout) p[e] *= drop.keep(row[r & 1], j, rate, keep_scale);
+        }
       }
-      pa[kk][r] = pack_bf16(p[0], p[1]);
+      if constexpr (ROUND) pa[kk][r] = pack_bf16(p[0], p[1]);
+      else split_bf16(p[0], p[1], pa[kk][r], pl[kk][r]);
     }
   }
 
-  // O = P V: the k-steps that hold keys, V MN-major (its rows are keys)
+  // O = P V: the k-steps that hold keys, V MN-major (its rows are keys);
+  // -pallas: the low part's product first
   float o[4 * DT];
 #pragma unroll
   for (int i = 0; i < 4 * DT; ++i) o[i] = 0.f;
@@ -561,10 +575,8 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int kk = 0; kk < NK / 16; ++kk) {
     if (16 * kk < Lk) {
       const uint64_t db = desc_b128(sV + kk * 16 * kRow, NK * kRow, 1024);
-      if constexpr (DT == 4) wgmma_rs_n32(o, pa[kk], db, 1);
-      else if constexpr (DT == 6) wgmma_rs_n48(o, pa[kk], db, 1);
-      else if constexpr (DT == 8) wgmma_rs_n64(o, pa[kk], db, 1);
-      else wgmma_rs_n128(o, pa[kk], db, 1);
+      if constexpr (!ROUND) wgmma_rs<DT>(o, pl[kk], db, 1);
+      wgmma_rs<DT>(o, pa[kk], db, 1);
     }
   }
   wgmma_commit();
@@ -601,7 +613,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // warpgroups a block of the wgmma design takes for Lq query rows
 int wg_count(int Lq) { return Lq > kWgRows ? 2 : 1; }
 
-template <int NK, int DT>
+template <int NK, int DT, bool ROUND>
 int launch_wgmma_dt(const void* q, const void* k, const void* v, const float* mask, void* out,
                     float* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
                     float rate, float keep_scale, float keep_rcp, int seed, int hb,
@@ -609,7 +621,7 @@ int launch_wgmma_dt(const void* q, const void* k, const void* v, const float* ma
   // TMA takes 16-byte aligned tensors
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  cudaError_t err = raise_smem_limit<attention_fwd_wgmma_kernel<NK, DT>>();
+  cudaError_t err = raise_smem_limit<attention_fwd_wgmma_kernel<NK, DT, ROUND>>();
   if (err != cudaSuccess) return (int)err;
   using hopper::tensor_map;
   CUtensorMap tq, tk, tv, to;
@@ -621,9 +633,10 @@ int launch_wgmma_dt(const void* q, const void* k, const void* v, const float* ma
     return (int)err;
   const int nwg = wg_count(Lq);
   const dim3 grid(BH, (Lq + nwg * kWgRows - 1) / (nwg * kWgRows));
-  attention_fwd_wgmma_kernel<NK, DT><<<grid, 128 * nwg, WgLayout<NK, DT>::bytes(nwg), stream>>>(
-      tq, tk, tv, to, mask, lse, H, Lq, Lk, Lm, scale, rate, keep_scale, keep_rcp,
-      (uint32_t)seed, hb);
+  attention_fwd_wgmma_kernel<NK, DT, ROUND>
+      <<<grid, 128 * nwg, WgLayout<NK, DT>::bytes(nwg), stream>>>(
+          tq, tk, tv, to, mask, lse, H, Lq, Lk, Lm, scale, rate, keep_scale, keep_rcp,
+          (uint32_t)seed, hb);
   return (int)cudaGetLastError();
 }
 
@@ -647,26 +660,33 @@ int with_wgmma_instance(int Lk, int D, F&& f) {
 
 int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, void* out,
                  void* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
-                 float rate, float keep_scale, float keep_rcp, int seed, int hb,
+                 float rate, float keep_scale, float keep_rcp, int seed, int hb, int round_p,
                  cudaStream_t stream) {
   return with_wgmma_instance(Lk, D, [&](auto inst) {
     using I = decltype(inst);
-    return launch_wgmma_dt<I::NK, I::DT>(q, k, v, static_cast<const float*>(mask), out,
-                                         static_cast<float*>(lse), B, H, Lq, Lk, D, Lm,
-                                         scale, rate, keep_scale, keep_rcp, seed, hb, stream);
+    const float* m = static_cast<const float*>(mask);
+    float* l = static_cast<float*>(lse);
+    if (round_p)
+      return launch_wgmma_dt<I::NK, I::DT, true>(q, k, v, m, out, l, B, H, Lq, Lk, D, Lm,
+                                                 scale, rate, keep_scale, keep_rcp, seed, hb,
+                                                 stream);
+    return launch_wgmma_dt<I::NK, I::DT, false>(q, k, v, m, out, l, B, H, Lq, Lk, D, Lm, scale,
+                                                rate, keep_scale, keep_rcp, seed, hb, stream);
   });
 }
 
 }  // namespace
 
 // The design a launch takes: 0 the mma.sync one-pass online softmax (fp32,
-// bf16 -pallas), 1 the mma.sync two-pass rounding instance (bf16 with
-// round_p past kWgKeys keys, or D not a multiple of 8, which TMA's 16-byte
-// row strides need), 2 the wgmma design; -1 on bad input.
+// and bf16 -pallas where the wgmma design does not take it), 1 the
+// mma.sync two-pass rounding instance (bf16 with round_p where the wgmma
+// design does not take it), 2 the wgmma design (bf16 in either mode with
+// Lk <= kWgKeys and D a multiple of 8, which TMA's 16-byte row strides
+// need); -1 on bad input.
 extern "C" int attention_fwd_design(int dtype, int round_p, int Lk, int D) {
   if (Lk < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) return -1;
-  if (dtype == 0 || !round_p) return 0;
-  return Lk <= kWgKeys && D % 8 == 0 ? 2 : 1;
+  if (dtype == 1 && Lk <= kWgKeys && D % 8 == 0) return 2;
+  return dtype == 1 && round_p ? 1 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q/out [B,H,Lq,D],
@@ -697,14 +717,15 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                                          scale, rate, keep_scale, keep_rcp, seed, hb, s);
     case 2:
       return launch_wgmma(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale, rate,
-                          keep_scale, keep_rcp, seed, hb, s);
+                          keep_scale, keep_rcp, seed, hb, round_p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // Bytes of dynamic shared memory one block of the wgmma design takes at
-// (Lq, Lk, D) (0 where the design takes no such launch).
+// (Lq, Lk, D) (0 where the design takes no such launch; both modes take
+// the same).
 extern "C" int attention_fwd_wgmma_smem(int Lq, int Lk, int D) {
   if (Lq < 1 || attention_fwd_design(1, 1, Lk, D) != 2) return 0;
   return with_wgmma_instance(Lk, D, [&](auto inst) {
@@ -713,19 +734,23 @@ extern "C" int attention_fwd_wgmma_smem(int Lq, int Lk, int D) {
   });
 }
 
-// Blocks of the wgmma design at (Lq, Lk, D) that one SM holds at once, as
-// the CUDA occupancy calculator gives them from the kernel's registers,
-// threads and shared memory; a negative CUDA error code on failure.
-extern "C" int attention_fwd_wgmma_blocks_per_sm(int Lq, int Lk, int D) {
-  if (Lq < 1 || attention_fwd_design(1, 1, Lk, D) != 2) return -(int)cudaErrorInvalidValue;
+// Blocks of the wgmma design at (Lq, Lk, D) in the mode round_p that one
+// SM holds at once, as the CUDA occupancy calculator gives them from the
+// kernel's registers, threads and shared memory; a negative CUDA error code
+// on failure.
+extern "C" int attention_fwd_wgmma_blocks_per_sm(int Lq, int Lk, int D, int round_p) {
+  if (Lq < 1 || attention_fwd_design(1, round_p, Lk, D) != 2)
+    return -(int)cudaErrorInvalidValue;
   return with_wgmma_instance(Lk, D, [&](auto inst) {
     using I = decltype(inst);
-    cudaError_t err = raise_smem_limit<attention_fwd_wgmma_kernel<I::NK, I::DT>>();
+    const void* fn = round_p ? (const void*)attention_fwd_wgmma_kernel<I::NK, I::DT, true>
+                             : (const void*)attention_fwd_wgmma_kernel<I::NK, I::DT, false>;
+    cudaError_t err = round_p ? raise_smem_limit<attention_fwd_wgmma_kernel<I::NK, I::DT, true>>()
+                              : raise_smem_limit<attention_fwd_wgmma_kernel<I::NK, I::DT, false>>();
     if (err != cudaSuccess) return -(int)err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, attention_fwd_wgmma_kernel<I::NK, I::DT>, 128 * wg_count(Lq),
-        WgLayout<I::NK, I::DT>::bytes(wg_count(Lq)));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 128 * wg_count(Lq),
+                                                        WgLayout<I::NK, I::DT>::bytes(wg_count(Lq)));
     return err == cudaSuccess ? blocks : -(int)err;
   });
 }

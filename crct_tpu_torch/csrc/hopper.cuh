@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the attention kernels' wgmma designs
 // (attention_fwd.cu, attention_bwd.cu): mbarriers, TMA tensor maps and the
 // copies between global and shared memory they describe, wgmma descriptors
-// and the warpgroup products it issues, and stores of accumulators into
-// swizzled tiles.
+// and the warpgroup products it issues (bf16, and TF32 for fp32 inputs),
+// and stores of accumulators into swizzled tiles.
 //
 // Shared-memory tiles are bf16 matrices of 64-column (128-byte) rows in
 // the 128-byte swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and
@@ -463,6 +463,106 @@ __device__ __forceinline__ void wgmma_ss_nt(float (&d)[4 * DT], uint64_t a, uint
   else {
     static_assert(DT == 16, "no such product");
     wgmma_ss_nt_n128(d, a, b, scale_d);
+  }
+}
+
+// d (64 x N) += A B with A from registers and B MN-major in shared memory,
+// for N = 8 DT
+template <int DT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4 * DT], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (DT == 4) wgmma_rs_n32(d, a, b, scale_d);
+  else if constexpr (DT == 6) wgmma_rs_n48(d, a, b, scale_d);
+  else if constexpr (DT == 8) wgmma_rs_n64(d, a, b, scale_d);
+  else {
+    static_assert(DT == 16, "no such product");
+    wgmma_rs_n128(d, a, b, scale_d);
+  }
+}
+
+// ---- TF32 wgmma (fp32 inputs, 3xTF32 in attention_bwd.cu) ---------------
+//
+// TF32 products take K-major operands from shared memory only (the
+// transpose bits are 16-bit types'); a k-step is 8 elements, 32 bytes, so
+// a K-major fp32 tile is addressed as a bf16 one: 32-element (128-byte)
+// swizzled rows, the descriptor's start moved 32 bytes a k-step. The
+// hardware reads the top 19 bits of each 32-bit operand and ignores the
+// rest, so a split operand's high part is stored rounded already (tf32()),
+// and its low part is the TF32 rounding of what that left over. A from
+// registers lies as mma.sync m16n8k8's TF32 A for the warp's 16 rows:
+// a0 (gr, tq), a1 (gr + 8, tq), a2 (gr, tq + 4), a3 (gr + 8, tq + 4).
+
+// d (64 x 32) = A B (+ d with scale_d) in TF32: A 64 x 8 from registers
+// (TF32 bit patterns), B 8 x 32 K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 48) = A B (+ d with scale_d) in TF32: A 64 x 8 from registers
+// (TF32 bit patterns), B 8 x 48 K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_tf32_n48(float (&d)[24], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) = A B (+ d with scale_d) in TF32: A 64 x 8 from registers
+// (TF32 bit patterns), B 8 x 64 K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32) = A B (+ d with scale_d) in TF32: A 64 x 8 and B 8 x 32,
+// both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N) += A B in TF32, A from registers and B K-major in shared
+// memory, for the N the attention backward takes
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  if constexpr (N == 32) wgmma_rs_tf32_n32(d, a, b, scale_d);
+  else if constexpr (N == 48) wgmma_rs_tf32_n48(d, a, b, scale_d);
+  else {
+    static_assert(N == 64, "no such product");
+    wgmma_rs_tf32_n64(d, a, b, scale_d);
   }
 }
 

@@ -61,19 +61,24 @@ and in ``PALLAS`` mode the probabilities, enter split into a bf16 high and
 low part (about 16 significant bits, finer than TF32, so that they stay
 fp32-like as in the JAX Pallas path). In ``ROUND_PROBS`` mode P is bf16
 and P.V and dv take one bf16 product. K1 has three designs, picked by
-dtype, mode and shape (:func:`fwd_design`): in ``ROUND_PROBS`` mode with
-bf16 inputs, up to 128 keys and D a multiple of 8 (every bf16 train, eval
-and serve step at the flagship shapes) one pass over the whole key row on
-Hopper's ``wgmma`` and TMA copies; past 128 keys two ``mma.sync`` passes
-over the key tiles, the first for the rows' max and sum, so that it rounds
-the normalized P as JAX does; fp32 and ``PALLAS`` an ``mma.sync`` online
-softmax. K2 has two (:func:`bwd_design`): with bf16 inputs in either
-mode, up to 128 keys and D a multiple of 8 (every bf16 train step at the
-flagship shapes) a warpgroup a 64-key slab on ``wgmma`` and TMA copies, P
-and dS through shared memory for dv, dk and dq; else ``mma.sync``, over
-key tiles past 128 keys. A wgmma design takes 16-byte aligned tensors: a
-misaligned one raises (CUDA error 716) at its launch, which is not
-counted.
+dtype, mode and shape (:func:`fwd_design`): with bf16 inputs in either
+mode, up to 128 keys and D a multiple of 8 (every bf16 train, eval and
+serve step at the flagship shapes) one pass over the whole key row on
+Hopper's ``wgmma`` and TMA copies (in ``PALLAS`` mode P as bf16 hi + lo,
+two register-A products a k-step); past 128 keys in ``ROUND_PROBS`` mode
+two ``mma.sync`` passes over the key tiles, the first for the rows' max
+and sum, so that it rounds the normalized P as JAX does; fp32 and the rest
+an ``mma.sync`` online softmax. K2 has four (:func:`bwd_design`): with
+bf16 inputs in either mode, up to 128 keys and D a multiple of 8 (every
+bf16 train step at the flagship shapes) a warpgroup a 64-key slab on
+``wgmma`` and TMA copies, P and dS through shared memory for dv, dk and
+dq; with fp32 inputs, up to 128 keys, D a multiple of 4 and at most 48
+(every flagship shape but the vision self-attention's D 64) the same layout
+on TF32 ``wgmma`` in 3xTF32, P and dS the register A operands of dv and dk
+and dS through shared memory for dq; else ``mma.sync``, over key tiles past
+128 keys. A
+wgmma design takes 16-byte aligned tensors: a misaligned one raises (CUDA
+error 716) at its launch, which is not counted.
 """
 
 from __future__ import annotations
@@ -391,7 +396,8 @@ def fwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:
 
 # K2's designs, by the code csrc/attention_bwd.cu's attention_bwd_design
 # gives them
-BWD_DESIGNS = {0: "mma.sync", 1: "mma.sync key tiles", 2: "wgmma"}
+BWD_DESIGNS = {0: "mma.sync", 1: "mma.sync key tiles", 2: "wgmma",
+               3: "wgmma tf32"}
 
 
 def bwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:

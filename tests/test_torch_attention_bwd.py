@@ -207,3 +207,57 @@ def test_bf16_default_mode_vjp_matches_the_jax_xla_path(shape, rate):
     for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
         share, ulps = bf16_agreement(a, w)
         assert share <= DIFFERING and ulps <= 1.0, (name, share, ulps)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as cvt.rna.tf32.f32 rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero (half of the 13
+    dropped bits added to the magnitude, then the 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3):
+    """a @ b in fp32 from TF32 operands, as K2's TF32 design takes its
+    products: with 3 terms hi_a hi_b + hi_a lo_b + lo_a hi_b (3xTF32, lo the
+    TF32 rounding of what hi left over, lo_a lo_b left out); with 1 the
+    product of the high parts alone."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = ah @ bh
+    if terms == 3:
+        out = out + ah @ tf32_round(b - bh) + tf32_round(a - ah) @ bh
+    return out
+
+
+def tf32_backward(q, k, v, mask, g, rate, seed, terms=3):
+    """attention_bwd_reference's fp32 formulas with each of K2's five
+    products (q k^T, g v^T, dv, dq, dk) through tf32_matmul."""
+    scale = port._scale(q.shape[-1])
+    s = tf32_matmul(q, k.transpose(-1, -2), terms) * scale + mask
+    probs = port._softmax(s)[0]
+    dpd = tf32_matmul(g, v.transpose(-1, -2), terms)
+    keep = port.keep_mask(tuple(probs.shape), seed, rate, probs.device)
+    pd, dp = probs * keep, dpd * keep
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    return (tf32_matmul(ds, k, terms) * scale,
+            tf32_matmul(ds.transpose(-1, -2), q, terms) * scale,
+            tf32_matmul(pd.transpose(-1, -2), g, terms))
+
+
+def test_tf32_split_keeps_the_backward_fp32_accurate():
+    """The 3xTF32 split of K2's fp32 design (csrc/attention_bwd.cu), its
+    five products emulated here with TF32 rounding by bit operations,
+    against attention_bwd_reference (held against JAX above) at a small
+    shape with dropout: within 1e-5 of max(1, |grad|), as chip_smoke.py
+    holds the kernel on the card. One TF32 product alone (the control)
+    misses that by far."""
+    q, k, v, mask, cot = (torch.from_numpy(x) for x in make_case(
+        7, B=2, H=4, Lq=37, Lk=41, D=48, full_mask=True))
+    want = port.attention_bwd_reference(q, k, v, mask, cot, 0.1, 5)
+    top = max(1.0, max(w.abs().max().item() for w in want))
+    for terms, within in ((3, True), (1, False)):
+        got = tf32_backward(q, k, v, mask, cot, 0.1, 5, terms)
+        err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        assert (err <= 1e-5 * top) == within, (terms, err, top)

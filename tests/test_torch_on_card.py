@@ -217,33 +217,67 @@ def test_wgmma_design_matches_plain_on_card(card, Lq, Lk, D):
             assert share <= WG_SHARE, (full, rate, share)
 
 
+# K1's wgmma design in -pallas mode (P fp32, split into bf16 hi + lo for
+# two register-A products a k-step) at its edges: query rows around its
+# 64-row warpgroup tiles, keys around its 64- and 128-key instances (129
+# takes the mma.sync instance), the head widths of each instance; key-only
+# and full masks, dropout 0 and 0.1. The output within 2e-2, the
+# log-sum-exp within 1e-5 of max(1, |lse|), as chip_smoke.py holds it.
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("Lk", [1, 63, 64, 65, 128, 129])
+@pytest.mark.parametrize("Lq", [1, 63, 64, 65, 124, 129])
+def test_wgmma_pallas_design_matches_plain_on_card(card, Lq, Lk, D):
+    B, H = 4, 8
+    mode = attention.PALLAS
+    assert attention.fwd_design(torch.bfloat16, mode, Lk, D) == (
+        "wgmma" if Lk <= 128 else "mma.sync")
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = make_qkv(Lq * Lk + D + 1, B, H, Lq, Lk, D,
+                                     Lq if full else 1, torch.bfloat16, card)
+            before = attention.launch_count()
+            out, lse = attention.attention_forward(q, k, v, mask, rate, 21,
+                                                   mode=mode)
+            assert attention.launch_count() == before + 1
+            want, want_lse = attention.attention_reference(
+                q, k, v, mask, rate, 21, return_lse=True, mode=mode)
+            top = max(1.0, want_lse.abs().max().item())
+            torch.testing.assert_close(lse, want_lse, atol=1e-5 * top, rtol=0)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       atol=TOL[torch.bfloat16],
+                                       rtol=TOL[torch.bfloat16])
+
+
 def test_wgmma_design_takes_the_flagship_default_mode_on_card(card):
-    """The default mode's bf16 launches at the flagship shapes take the
-    wgmma design; fp32, -pallas and the two-pass instance's keep theirs."""
+    """The bf16 launches at the flagship shapes take the wgmma design in
+    both modes; fp32 keeps the mma.sync design, and past 128 keys or at a
+    D that is not a multiple of 8 the default mode takes the two-pass
+    instance and -pallas the one-pass mma.sync one."""
     for Lk, D in ((124, 48), (44, 64), (44, 32), (124, 32)):
+        for mode in attention.MODES:
+            assert attention.fwd_design(torch.bfloat16, mode, Lk, D) \
+                == "wgmma"
+            assert attention.fwd_design(torch.float32, mode, Lk, D) \
+                == "mma.sync"
+    for Lk, D in ((300, 64), (44, 12)):
         assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS,
-                                    Lk, D) == "wgmma"
+                                    Lk, D) == "mma.sync two-pass"
         assert attention.fwd_design(torch.bfloat16, attention.PALLAS, Lk,
                                     D) == "mma.sync"
-        assert attention.fwd_design(torch.float32, attention.ROUND_PROBS,
-                                    Lk, D) == "mma.sync"
-    assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS, 300,
-                                64) == "mma.sync two-pass"
-    assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS, 44,
-                                12) == "mma.sync two-pass"
 
 
-def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card):
+@MODES
+def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card, mode):
     """TMA reads 16-byte aligned tensors: a contiguous view 2 bytes into
     its storage raises at the launch, which is not counted, rather than
-    taking another design."""
+    taking another design, in either bf16 mode."""
     q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, torch.bfloat16, card)
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
     shifted = flat[1:].view(q.shape)
     shifted.copy_(q)
     before = attention.launch_count()
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        attention.fused_attention(shifted, k, v, mask)
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        attention.fused_attention(shifted, k, v, mask, mode=mode)
     assert attention.launch_count() == before
 
 
@@ -264,13 +298,14 @@ WG_BWD_SHARE = 0.02
 WG_BWD_MODES = attention.MODES
 
 
-def wgmma_bwd_case(card, B, H, Lq, Lk, D, Lm, rate, mode, seed=0):
+def wgmma_bwd_case(card, B, H, Lq, Lk, D, Lm, rate, mode, seed=0,
+                   dtype=torch.bfloat16):
     """(K2's gradients, the plain version's, the share of elements that
-    differ) for inputs made from ``seed``."""
-    q, k, v, mask = make_qkv(seed, B, H, Lq, Lk, D, Lm, torch.bfloat16, card)
+    differ) for inputs in ``dtype`` made from ``seed``."""
+    q, k, v, mask = make_qkv(seed, B, H, Lq, Lk, D, Lm, dtype, card)
     g = torch.randn(q.shape, device=card,
                     generator=torch.Generator(card).manual_seed(seed)
-                    ).to(torch.bfloat16)
+                    ).to(dtype)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = attention.fused_attention(q, k, v, mask, rate, 33, mode=mode)
     before = attention.bwd_launch_count()
@@ -307,27 +342,96 @@ def test_wgmma_backward_matches_plain_on_card(card, Lq, Lk, D):
 
 
 def test_wgmma_backward_takes_the_flagship_bf16_launches_on_card(card):
-    """The bf16 backward launches at the flagship shapes take the wgmma
-    design in each mode it takes; fp32 keeps the mma.sync design and more
-    than 128 keys the mma.sync design over key tiles."""
+    """The backward launches at the flagship shapes take the wgmma design
+    in bf16, in each mode it takes, and the TF32 wgmma design in fp32 but
+    at the vision shape (D 64, which it does not take); more than 128 keys
+    the mma.sync design over key tiles, and the shapes the wgmma designs do
+    not take (bf16 at a D that is not a multiple of 8, fp32 at one that is
+    not a multiple of 4 or above 48) the mma.sync design."""
     for Lk, D in ((124, 48), (44, 64), (44, 32), (124, 32)):
         for mode in attention.MODES:
             assert attention.bwd_design(torch.bfloat16, mode, Lk, D) == (
                 "wgmma" if mode in WG_BWD_MODES else "mma.sync")
-            assert attention.bwd_design(torch.float32, mode, Lk, D) \
-                == "mma.sync"
+            assert attention.bwd_design(torch.float32, mode, Lk, D) == (
+                "mma.sync" if D == 64 else "wgmma tf32")
     for dtype in (torch.float32, torch.bfloat16):
         assert attention.bwd_design(dtype, attention.ROUND_PROBS, 300, 64) \
             == "mma.sync key tiles"
     assert attention.bwd_design(torch.bfloat16, attention.ROUND_PROBS, 44,
                                 12) == "mma.sync"
+    assert attention.bwd_design(torch.float32, attention.ROUND_PROBS, 44,
+                                12) == "wgmma tf32"
+    for Lk, D in ((44, 30), (124, 64), (44, 128)):
+        assert attention.bwd_design(torch.float32, attention.ROUND_PROBS,
+                                    Lk, D) == "mma.sync"
 
 
-def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card):
-    """TMA reads 16-byte aligned tensors: a contiguous cotangent 2 bytes
-    into its storage raises at K2's launch, which is not counted, rather
-    than taking another design."""
-    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, torch.bfloat16, card)
+# K2's TF32 wgmma design (fp32, up to 128 keys, D a multiple of 4 and at
+# most 48: tf32_takes in csrc/attention_bwd.cu) at its edges: query rows
+# around its 32-query chunks, keys around its one- and two-warpgroup
+# instances (129 takes the mma.sync design over key tiles), the head widths
+# of each instance and beyond it (D 64 and 128 take the mma.sync design);
+# key-only and full masks, dropout 0 and 0.1. Each gradient within 1e-5 of max(1, |grad|), as chip_smoke.py
+# holds K2 in fp32. One key is held apart (the next test).
+def tf32_design(Lk, D):
+    if Lk > 128:
+        return "mma.sync key tiles"
+    return "wgmma tf32" if D % 4 == 0 and D <= 48 else "mma.sync"
+
+
+@pytest.mark.parametrize("D", [16, 32, 44, 48, 64, 128])
+@pytest.mark.parametrize("Lk", [9, 44, 63, 64, 65, 124, 128, 129])
+@pytest.mark.parametrize("Lq", [1, 31, 33, 63, 64, 65, 124, 129])
+def test_wgmma_tf32_backward_matches_plain_on_card(card, Lq, Lk, D):
+    B, H = 4, 8
+    for mode in attention.MODES:
+        assert attention.bwd_design(torch.float32, mode, Lk, D) \
+            == tf32_design(Lk, D)
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            got, want, _ = wgmma_bwd_case(
+                card, B, H, Lq, Lk, D, Lq if full else 1, rate,
+                attention.ROUND_PROBS, Lq * Lk + D, torch.float32)
+            for a, w in zip(got, want):
+                assert a.dtype == torch.float32
+                tol = TOL[torch.float32] * max(1.0, w.abs().max().item())
+                torch.testing.assert_close(a, w, atol=tol, rtol=0)
+
+
+# One key: the softmax over it is 1 whatever its score, so dq and dk are
+# zero in exact arithmetic, and the plain version, which recomputes the
+# softmax, gives exactly zero. K2 (every design) takes P = exp(s - lse)
+# from the forward's log-sum-exp: where the key is masked, s and lse lie
+# near -1e4, where fp32 keeps about 1e-3, and dq and dk are that rounding
+# of P: dq and dk are P dP (1 - P), and dv = P^T g carries it too. Held:
+# each gradient within 1e-2 of max(1, |grad|) (read: 1.6e-3 of it in dq
+# and dk, 4.8e-3 absolute in dv of up to 24), at a width of the TF32 design
+# (48) and of the mma.sync one (128), every row's key masked.
+@pytest.mark.parametrize("D", [48, 128])
+def test_fp32_backward_over_one_masked_key_on_card(card, D):
+    B, H, Lq = 4, 8, 33
+    assert attention.bwd_design(torch.float32, attention.ROUND_PROBS, 1,
+                                D) == tf32_design(1, D)
+    q, k, v, _ = make_qkv(D, B, H, Lq, 1, D, 1, torch.float32, card)
+    mask = torch.full((B, 1, 1, 1), -10000.0, device=card)
+    g = torch.randn(q.shape, device=card,
+                    generator=torch.Generator(card).manual_seed(D))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = attention.fused_attention(*leaves, mask, 0.1, 9)
+    got = torch.autograd.grad(out, leaves, g)
+    want = attention.attention_bwd_reference(q, k, v, mask, g, 0.1, 9)
+    top = max(1.0, max(w.abs().max().item() for w in want))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-2 * top, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card, dtype):
+    """The wgmma designs read 16-byte aligned tensors: a contiguous
+    cotangent one element (2 or 4 bytes) into its storage raises at K2's
+    launch, which is not counted, rather than taking another design."""
+    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, dtype, card)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = attention.fused_attention(q, k, v, mask)
     flat = torch.empty(out.numel() + 1, dtype=out.dtype, device=card)
@@ -339,20 +443,26 @@ def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card):
     assert attention.bwd_launch_count() == before
 
 
-@pytest.mark.parametrize("mode", WG_BWD_MODES)
-def test_wgmma_backward_is_deterministic_on_card(card, mode):
+@pytest.mark.parametrize("dtype, mode",
+                         [(torch.bfloat16, m) for m in WG_BWD_MODES]
+                         + [(torch.float32, attention.ROUND_PROBS)],
+                         ids=[f"bfloat16-{m}" for m in WG_BWD_MODES]
+                         + ["float32"])
+def test_wgmma_backward_is_deterministic_on_card(card, dtype, mode):
     """Two launches on the same inputs give the same bits: one block owns a
-    (batch, head), with no atomics and every sum in a fixed order."""
-    q, k, v, mask = make_qkv(6, 6, 16, 124, 124, 48, 1, torch.bfloat16, card)
+    (batch, head), with no atomics and every sum in a fixed order (bf16 on
+    the wgmma design, fp32 on the TF32 one)."""
+    q, k, v, mask = make_qkv(6, 6, 16, 124, 124, 48, 1, dtype, card)
     g = torch.randn(q.shape, device=card,
                     generator=torch.Generator(card).manual_seed(6)
-                    ).to(torch.bfloat16)
+                    ).to(dtype)
     out, lse = attention.attention_forward(q, k, v, mask, 0.1, 8, mode=mode)
     mask4 = mask.expand(6, 1, 1, 124).contiguous()
     first, second = (attention._launch_bwd(q, k, v, mask4, g, out, lse, 0.1,
                                            8, mode) for _ in range(2))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for a, b in zip(first, second):
-        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        assert torch.equal(a.view(bits), b.view(bits))
 
 
 def test_kernel_rejects_what_it_does_not_take_on_card(card):
