@@ -23,9 +23,10 @@ Phases, one line each (any failure exits non-zero):
   2. build   - nvcc builds the kernels from crct_tpu_torch/csrc/
                attention_{fwd,bwd}.cu and roi_align_bwd.cu for sm_90a, all
                at once, and reports their registers and shared memory; for
-               K1's wgmma design (bf16, default mode, Lk <= 128) each
-               instance's registers and spill bytes (ptxas; a spill fails)
-               and its HGMMA instructions in the SASS (none fails);
+               the wgmma designs of K1 (bf16 in both modes, TF32 in fp32,
+               Lk <= 128) and K2 each instance's registers and spill bytes
+               (ptxas; a spill fails) and its HGMMA instructions in the
+               SASS (none fails);
   3. kernel  - the forward kernel (K1) against its plain PyTorch version at
                the four flagship attention shapes (B = 240 rows), output and
                log-sum-exp, and the backward kernel (K2) against its plain
@@ -540,11 +541,12 @@ def wgmma_notes(log):
 
 def wgmma_occupancy(build, attention, failures):
     """The wgmma designs at the flagship shapes: {(kernel, shape name,
-    mode): (shared memory bytes, warps, blocks per SM)} (K2's TF32 rows
+    mode): (shared memory bytes, warps, blocks per SM)} (the TF32 rows
     under the mode "both", as the fp32 rows of the kernels' line), and
     their lines: blocks per SM and waves over the card's SMs, K1 at B rows
-    (64-row warpgroup tiles, two a block above 64 query rows), K2 at
-    B_TRAIN (one block a (batch, head), a warpgroup a 64-key slab)."""
+    (64-row warpgroup tiles, two a block above 64 query rows in bf16, one
+    a block in fp32), K2 at B_TRAIN (one block a (batch, head), a
+    warpgroup a 64-key slab)."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     occ = {}
@@ -556,23 +558,36 @@ def wgmma_occupancy(build, attention, failures):
         fn.restype = ctypes.c_int
     parts = []
     for kname, (H, Lq, Lk, D) in SHAPES.items():
-        for mode in (DEFAULT, PALLAS):
-            if attention.fwd_design(torch.bfloat16, mode, Lk, D) != "wgmma":
+        for dtype, mode in ((torch.bfloat16, DEFAULT),
+                            (torch.bfloat16, PALLAS),
+                            (torch.float32, DEFAULT)):
+            design = attention.fwd_design(dtype, mode, Lk, D)
+            if design == "wgmma":
+                smem = lib.attention_fwd_wgmma_smem(Lq, Lk, D)
+                per_sm = lib.attention_fwd_wgmma_blocks_per_sm(
+                    Lq, Lk, D, int(mode == DEFAULT))
+                nwg = 2 if Lq > 64 else 1
+            elif design == "wgmma tf32":
+                # one warpgroup a block
+                mode, nwg = "both", 1
+                for fn in (lib.attention_fwd_tf32_smem,
+                           lib.attention_fwd_tf32_blocks_per_sm):
+                    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+                smem = lib.attention_fwd_tf32_smem(Lq, Lk, D)
+                per_sm = lib.attention_fwd_tf32_blocks_per_sm(Lq, Lk, D)
+            else:
                 continue
-            smem = lib.attention_fwd_wgmma_smem(Lq, Lk, D)
-            per_sm = lib.attention_fwd_wgmma_blocks_per_sm(
-                Lq, Lk, D, int(mode == DEFAULT))
-            nwg = 2 if Lq > 64 else 1
+            what = f"{kname} {str(dtype)[6:]} {mode}"
             if smem < 1 or per_sm < 1:
-                failures.append(f"attention_fwd wgmma occupancy of {kname} "
-                                f"{mode}: {smem} bytes, {per_sm} blocks")
+                failures.append(f"attention_fwd {design} occupancy of "
+                                f"{what}: {smem} bytes, {per_sm} blocks")
                 continue
             occ[("fwd", kname, mode)] = (smem, 4 * nwg, per_sm)
             blocks = B * H * -(-Lq // (64 * nwg))
-            parts.append(f"{kname} {mode} {smem / 1024:.1f} KB, {4 * nwg} "
-                         f"warps, {per_sm} blocks, "
+            parts.append(f"{what} ({design}) {smem / 1024:.1f} KB, "
+                         f"{4 * nwg} warps, {per_sm} blocks, "
                          f"{blocks / (per_sm * sms):.2f} waves")
-    say("build", f"attention_fwd wgmma per block (bf16) on {sms} SMs at B = "
+    say("build", f"attention_fwd wgmma per block on {sms} SMs at B = "
                  f"{B}: " + "; ".join(parts))
     lib = build.load("attention_bwd")
     for name in ("wgmma", "tf32"):
@@ -5145,8 +5160,8 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
         for row, flops, nbytes, lse_err, rnd, sh in check_kernel(
                 attention, kname, shape, failures):
             fwd_rows[(kname, row["dtype"], row["mode"])] = row
-            if row.get("design") == "wgmma" and ("fwd", kname,
-                                                 row["mode"]) in wg_occ:
+            if row.get("design", "").startswith("wgmma") \
+                    and ("fwd", kname, row["mode"]) in wg_occ:
                 row["smem_bytes"], row["warps"], row["blocks_per_sm"] = \
                     wg_occ[("fwd", kname, row["mode"])]
             say("kernel", f"K1 {kname} {row['dtype']} {row['mode']} "

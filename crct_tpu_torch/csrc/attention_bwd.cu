@@ -1090,33 +1090,6 @@ struct TfLayout {
   static_assert(bytes <= (size_t)kMaxSmem, "the tiles exceed an SM's shared memory");
 };
 
-// x rounded to TF32 as tf32() (cvt.rna.tf32.f32) rounds it, to the nearest
-// with ties away from zero: half of the 13 dropped bits added to the
-// magnitude, then the bits cleared. Two integer operations in place of the
-// conversion instruction: the design rounds some 60,000 values a chunk, and
-// the conversion cost the text shape 6 % of its time (PERF.md).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x as TF32 hi and lo (the TF32 rounding of what hi left over)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// x in TF32 hi and lo, 16 bytes each at byte `at` of the hi and lo tiles
-__device__ __forceinline__ void put_split4(unsigned char* hi, unsigned char* lo, int at,
-                                           const float (&x)[4]) {
-  uint4 h, l;
-  split_tf32(x[0], h.x, l.x);
-  split_tf32(x[1], h.y, l.y);
-  split_tf32(x[2], h.z, l.z);
-  split_tf32(x[3], h.w, l.w);
-  *reinterpret_cast<uint4*>(hi + at) = h;
-  *reinterpret_cast<uint4*>(lo + at) = l;
-}
-
 // A (64 x 8, from registers) of rows [r0, r0 + 16) x columns [k0, k0 + 8)
 // of a row-major fp32 tile, split (load_a<true> with tf32_rna)
 __device__ __forceinline__ FragA load_a_tf32(const float* s, int ld, int r0, int k0, int lane) {
@@ -1126,17 +1099,6 @@ __device__ __forceinline__ FragA load_a_tf32(const float* s, int ld, int r0, int
   split_tf32(p[8 * ld], f.hi[1], f.lo[1]);
   split_tf32(p[4], f.hi[2], f.lo[2]);
   split_tf32(p[8 * ld + 4], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// A from the accumulators c of one 8-column group, split (a_from_c<true>
-// with tf32_rna): k position tq is column 2 tq, tq + 4 column 2 tq + 1
-__device__ __forceinline__ FragA a_from_c_tf32(const float (&c)[4]) {
-  FragA f;
-  split_tf32(c[0], f.hi[0], f.lo[0]);
-  split_tf32(c[2], f.hi[1], f.lo[1]);
-  split_tf32(c[1], f.hi[2], f.lo[2]);
-  split_tf32(c[3], f.hi[3], f.lo[3]);
   return f;
 }
 
@@ -1154,19 +1116,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, 
     if (r < n && c < D) cp_async16(dst + r * LD + c, src + (size_t)r * D + c);
     else *reinterpret_cast<float4*>(dst + r * LD + c) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// c = a b, or with scale_d c += a b, in 3xTF32 (the small terms first): A
-// from registers, B's hi and lo tiles by their descriptors. A chain's first
-// product takes scale_d 0 rather than zeroed accumulators: no instruction
-// writes them between products, which would serialise every product
-// (ptxas C7515).
-template <int N>
-__device__ __forceinline__ void wgmma_rs_3xtf32(float (&d)[N / 2], const FragA& a, uint64_t bh,
-                                                uint64_t bl, int scale_d) {
-  hopper::wgmma_rs_tf32<N>(d, a.lo, bh, scale_d);
-  hopper::wgmma_rs_tf32<N>(d, a.hi, bl, 1);
-  hopper::wgmma_rs_tf32<N>(d, a.hi, bh, 1);
 }
 
 template <int NK, int DT>

@@ -261,6 +261,46 @@ __device__ __forceinline__ FragA a_from_c(const float c[4]) {
   return f;
 }
 
+// ---- TF32 splits for the wgmma designs (attention_{fwd,bwd}.cu) --------
+
+// x rounded to TF32 as tf32() (cvt.rna.tf32.f32) rounds it, to the nearest
+// with ties away from zero: half of the 13 dropped bits added to the
+// magnitude, then the bits cleared. Two integer operations in place of the
+// conversion instruction: K2's TF32 design rounds some 60,000 values a
+// chunk, and the conversion cost its text shape 6 % of its time (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as TF32 hi and lo (the TF32 rounding of what hi left over)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// x in TF32 hi and lo, 16 bytes each at byte `at` of the hi and lo tiles
+__device__ __forceinline__ void put_split4(unsigned char* hi, unsigned char* lo, int at,
+                                           const float (&x)[4]) {
+  uint4 h, l;
+  split_tf32(x[0], h.x, l.x);
+  split_tf32(x[1], h.y, l.y);
+  split_tf32(x[2], h.z, l.z);
+  split_tf32(x[3], h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + at) = h;
+  *reinterpret_cast<uint4*>(lo + at) = l;
+}
+
+// A from the accumulators c of one 8-column group, split (a_from_c<true>
+// with tf32_rna): k position tq is column 2 tq, tq + 4 column 2 tq + 1
+__device__ __forceinline__ FragA a_from_c_tf32(const float (&c)[4]) {
+  FragA f;
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
 // B (k, n) = s[(n0 + n) * ld + k0 + k]: the tile's rows are B's columns
 // (K in q k^T)
 template <bool SPLIT, typename T>

@@ -20,7 +20,7 @@
 // fp32 row), and 183 MB in bf16 (0.055 ms of bytes, 0.011 ms at 989
 // TFLOP/s: bytes bound the bf16 row).
 //
-// Three designs; attention_fwd picks one by dtype, mode and shape alone
+// Four designs; attention_fwd picks one by dtype, mode and shape alone
 // (attention_fwd_design), and a launch that fails raises, never falls back.
 //
 // The wgmma design (bf16 with Lk <= 128 and D a multiple of 8, in both
@@ -50,8 +50,34 @@
 // a thread at NK 128, packed P 32 (-pallas 64, as S is consumed), O D/2;
 // two blocks of 8 warps an SM (one of 8 at D > 64).
 //
-// The mma.sync designs (everything else: fp32, and bf16 past 128 keys or
-// with D not a multiple of 8): a block of W <= 8 warps takes 16 W query
+// The TF32 wgmma design (fp32 with Lk <= 128, D a multiple of 4 and at
+// most 64: every fp32 serve, eval and ingest step at the flagship shapes)
+// takes the wgmma design's one pass over the key row on TF32 wgmma
+// (m64nNk8) with fp32 accuracy: both products in 3xTF32, A_hi B_hi + A_hi
+// B_lo + A_lo B_hi, hi = tf32(x) and lo = tf32(x - hi) (the hardware reads
+// a TF32 operand's top 19 bits, so hi is stored rounded). A block is one
+// warpgroup and 64 query rows of one (batch, head); the query tiles of a
+// (batch, head) are neighbouring blocks, so that the second reads K and V
+// from L2. Q is the register A operand of S = Q K^T, split in registers as
+// it loads. TF32 takes B from shared memory, K-major only: the threads load
+// K in its own [Lk, D] layout (K-major for this product) and write its hi
+// and lo tiles swizzled; once S is done, V^T's hi and lo tiles take K's
+// place (K-major for O = P V), each row's keys in the order of the
+// register A operand's k positions (the accumulators hold columns 2 tq and
+// 2 tq + 1, the A fragment takes k positions tq and tq + 4), so that P
+// serves as A where the accumulators lie: no shuffle and no shared-memory
+// round trip. The rows' exact max and sum come from the accumulators (quad
+// shuffles); P = exp2(s - m) / sum times the fp32 keep multiplier is split
+// into hi and lo two k-steps at a time, just before their products (S dies
+// as it is consumed; the whole split P would take 128 registers at 128
+// keys), and O and the log-sum-exp go out from the registers. One tile for
+// K and then V^T keeps a block at 17.25-66.5 KB (49.5 at the text shape),
+// so that registers set the blocks an SM: three or four at the flagship
+// shapes (the budget in PERF.md).
+//
+// The mma.sync designs (everything else: fp32 past 128 keys or at other
+// head widths, and bf16 past 128 keys or with D not a multiple of 8): a
+// block of W <= 8 warps takes 16 W query
 // rows of one (batch, head), each warp a 16-row slab. Q of the block and one tile of up to 128
 // keys of K and V at a time (all keys at the flagship shapes) are staged in
 // shared memory in the input dtype with
@@ -675,17 +701,357 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, 
   });
 }
 
+// ---- the TF32 wgmma design (fp32; see the head of the file) -----------------
+
+// Shared memory of a block at NK keys and Dp = 8 DT head columns, by offset
+// from a 1024-byte boundary: K in TF32 hi and lo, the B operand of S = Q
+// K^T (K-major: rows of keys; 32 head columns a 128-byte swizzled slab, the
+// 16 past the last whole slab at Dp 48 in a 64-byte swizzled one, which
+// saves a quarter of the tile), then, in K's place once S has read K, V^T
+// in TF32 hi and lo, the B operand of O = P V (K-major: rows of head
+// columns, 32 keys a 128-byte swizzled slab, in the order of the register A
+// operand's k positions); the key-only mask row.
+template <int NK, int DT>
+struct TfLayout {
+  static constexpr int Dp = 8 * DT;
+  static constexpr int full = Dp / 32;          // K's 128-byte slabs
+  static constexpr bool half = Dp % 32 != 0;    // and a 64-byte one
+  static constexpr int k_tile = NK * (kRow * full + (half ? 64 : 0));
+  static constexpr int vt_slab = Dp * kRow;
+  static constexpr int vt_tile = NK / 32 * vt_slab;
+  static constexpr int off_k_hi = 0, off_k_lo = k_tile, off_vt_hi = 0, off_vt_lo = vt_tile,
+                       off_mask = 2 * k_tile, end = off_mask + NK * 4;
+  static constexpr size_t bytes = 1024 + end;
+  static_assert(vt_tile == k_tile && Dp % 16 == 0 && Dp <= 64 && k_tile % 1024 == 0 &&
+                    vt_slab % 1024 == 0,
+                "V^T fills K's place; the slabs start on the swizzles' boundaries");
+};
+
+// byte offset in K's tile of the 16-byte chunk c (head columns 4 c .. 4 c +
+// 3) of key row j
+template <int NK, int DT>
+__device__ __forceinline__ int k_chunk(int j, int c) {
+  using L = TfLayout<NK, DT>;
+  return c < 8 * L::full ? (c / 8) * NK * kRow + j * kRow + (((c % 8) ^ (j & 7)) * 16)
+                         : L::full * NK * kRow + j * 64 + (((c % 8) ^ ((j >> 1) & 3)) * 16);
+}
+
+// A block is one warpgroup (kTfThreads threads) and takes 64 query rows of
+// one (batch, head); several blocks an SM, so that one block's loads
+// overlap another's products
+constexpr int kTfThreads = 128;
+// k-steps of O = P V split and issued together: their fragments (8
+// registers a k-step) are what O's products add to S's registers
+constexpr int kTfGroup = 2;
+
+// Blocks an SM that the registers are capped for (65,536 / (128 x blocks)
+// a thread): four at 64 keys (128 registers), three at 128 (168; two at
+// Dp 64, where three spilled), within what shared memory holds (1 KB
+// reserved a block)
+template <int NK, int DT>
+constexpr int tf32_min_blocks() {
+  const int regs = NK == 64 ? 4 : DT == 8 ? 2 : 3;
+  const int smem = 233472 / ((int)TfLayout<NK, DT>::bytes + 1024);
+  return regs < smem ? regs : smem;
+}
+
+template <int NK, int DT>
+__global__ void __launch_bounds__(kTfThreads, (tf32_min_blocks<NK, DT>()))
+attention_fwd_wgmma_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ mask,
+                                float* __restrict__ out, float* __restrict__ lse, int H, int Lq,
+                                int Lk, int D, int Lm, float scale, float rate,
+                                float keep_scale, uint32_t seed, int hb) {
+  using namespace hopper;
+  using L = TfLayout<NK, DT>;
+  constexpr int Dp = L::Dp;
+  constexpr int T = kTfThreads;  // every loop's trip count is known
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the first 1024-byte boundary, as an offset into smem_raw (shared-memory
+  // loads and stores, not generic ones)
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* sMask = reinterpret_cast<float*>(sm + L::off_mask);
+
+  // the query tiles of a (batch, head) are neighbouring blocks, so that
+  // the second's K and V come from L2
+  const int tiles = (Lq + kWgRows - 1) / kWgRows;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = kWgRows * (blockIdx.x - bh * tiles);
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int gr = lane >> 2, tq4 = lane & 3;
+  const int rl = 16 * (t >> 5) + gr;  // the thread's rows rl, rl + 8 of the tile
+  const int row[2] = {q0 + rl, q0 + rl + 8};
+  const float* kh = k + (size_t)bh * Lk * D;
+  const float* vh = v + (size_t)bh * Lk * D;
+
+  // Q and K loaded first, so that their latencies overlap: Q of the
+  // thread's rows in the register A operand's places of S's D / 8 k-steps,
+  // a0 (gr, tq), a1 (gr + 8, tq), a2 (gr, tq + 4), a3 (gr + 8, tq + 4); K a
+  // 16-byte chunk (4 head columns) at a time, neighbouring threads along a
+  // key row; zeros past Lq, Lk and D
+  constexpr int kc = Dp / 4;
+  constexpr int kn = NK * kc / T, vn = Dp * (NK / 4) / T;
+  static_assert(NK * kc % T == 0 && Dp * (NK / 4) % T == 0, "whole staging rounds");
+  float qx[DT][4];
+  float4 kx[kn];
+  {
+    const float* qr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qr[i] = q + ((size_t)bh * Lq + min(row[i], Lq - 1)) * D;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e & 1, col = 8 * kk + tq4 + 4 * (e >> 1);
+        qx[kk][e] = row[r] < Lq && col < D ? qr[r][col] : 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kn; ++it) {
+    const int i = t + it * T;
+    const int j = i / kc, c = i % kc;
+    kx[it] = j < Lk && 4 * c < D ? *reinterpret_cast<const float4*>(kh + (size_t)j * D + 4 * c)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // V^T in TF32 hi + lo into K's place (below), once every warp's S has
+  // read K
+  float vx[vn][4];
+  auto store_vt = [&] {
+#pragma unroll
+    for (int it = 0; it < vn; ++it) {
+      const int i = t + it * T;
+      const int d = i % Dp, ch = i / Dp;
+      put_split4(sm + L::off_vt_hi, sm + L::off_vt_lo,
+                 (ch / 8) * L::vt_slab + d * kRow + (((ch % 8) ^ (d & 7)) * 16), vx[it]);
+    }
+    fence_async_shared();
+    __syncthreads();
+  };
+
+  // Q split in registers; K in TF32 hi + lo into its tiles; the key-only
+  // mask row (-inf past the last key)
+  FragA qa[DT];
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(qx[kk][e], qa[kk].hi[e], qa[kk].lo[e]);
+#pragma unroll
+  for (int it = 0; it < kn; ++it) {
+    const int i = t + it * T;
+    const float x[4] = {kx[it].x, kx[it].y, kx[it].z, kx[it].w};
+    put_split4(sm + L::off_k_hi, sm + L::off_k_lo, k_chunk<NK, DT>(i / kc, i % kc), x);
+  }
+  if (Lm == 1)
+    for (int j = t; j < NK; j += T)
+      sMask[j] = j < Lk ? mask[(size_t)b * Lk + j] : -CUDART_INF_F;
+  fence_async_shared();
+  __syncthreads();
+
+  // S = Q K^T over every key in 3xTF32, D / 8 k-steps along K's rows (the
+  // last two at Dp 48 from the 64-byte swizzled slab)
+  float s[NK / 2];
+  const uint64_t d128 = desc_b128(sm, 16, 1024);
+  const uint64_t d64 = desc_b64(sm, 512);
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    const bool wide = kk / 4 < L::full;
+    const int at = (kk / 4) * NK * kRow + (kk % 4) * 32;
+    const uint64_t dk = wide ? d128 : d64;
+    wgmma_rs_3xtf32<NK>(s, qa[kk], dk + ((L::off_k_hi + at) >> 4),
+                        dk + ((L::off_k_lo + at) >> 4), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+
+  // V in the chunks of V^T, loaded once S is done: row d's 16-byte chunk
+  // ch holds the keys 8 (ch / 2) + (ch % 2) + 2 a, a = 0..3, the k
+  // positions tq of the register A operand that the accumulators' columns
+  // 2 tq and 2 tq + 1 give (a_from_c_tf32); neighbouring threads along a V
+  // row. V^T is stored before the softmax at 128 keys (V's and S's
+  // registers together would cap the blocks an SM), after it at 64 (V's
+  // loads in flight meanwhile)
+#pragma unroll
+  for (int it = 0; it < vn; ++it) {
+    const int i = t + it * T;
+    const int d = i % Dp, j0 = 8 * ((i / Dp) >> 1) + ((i / Dp) & 1);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = j0 + 2 * a;
+      vx[it][a] = j < Lk && d < D ? vh[(size_t)j * D + d] : 0.f;
+    }
+  }
+  if constexpr (NK == 128) {
+    __syncthreads();
+    store_vt();
+  }
+
+  // scores in log2 units and the rows' exact max, sum and P = exp2(s - m)
+  // / sum, as the wgmma design takes them
+  const float* mrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    mrow[i] = mask + ((size_t)b * Lm + (Lm == 1 ? 0 : min(row[i], Lq - 1))) * Lk;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < NK / 8; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 8 * i + 2 * tq4 + (c & 1);
+      const float mv = Lm == 1 ? sMask[j] : (j < Lk ? mrow[c >> 1][j] : -CUDART_INF_F);
+      s[4 * i + c] = (s[4 * i + c] * scale + mv) * kLog2e;
+      m[c >> 1] = fmaxf(m[c >> 1], s[4 * i + c]);
+    }
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) {
+    s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    inv[i] = 1.f / l[i];
+  }
+
+  if constexpr (NK == 64) {
+    __syncthreads();
+    store_vt();
+  }
+
+  // O = P V in 3xTF32 over the k-steps (8 keys) that hold keys, P times the
+  // fp32 keep multiplier as the A operand where the accumulators lie, split
+  // a group of kTfGroup k-steps at a time just before its products (so S
+  // dies as it is consumed, and the group's fragments after its wait); the
+  // products of the high parts in om, the small terms in os (fewer
+  // truncating additions into each, see kFlush)
+  const DropoutStream drop(seed, b, h, H, hb);
+  const bool dropout = rate > 0.f;
+  float om[4 * DT], os[4 * DT];
+  const uint64_t dv = desc_b128(sm, 16, 1024);
+#pragma unroll
+  for (int g = 0; g < NK / 8; g += kTfGroup) {
+    if (8 * g < Lk) {
+      FragA pa[kTfGroup];
+#pragma unroll
+      for (int e = 0; e < kTfGroup; ++e) {
+        const int i = g + e;
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          p[c] = s[4 * i + c] * inv[c >> 1];
+          if (dropout) p[c] *= drop.keep(row[c >> 1], 8 * i + 2 * tq4 + (c & 1), rate, keep_scale);
+        }
+        pa[e] = a_from_c_tf32(p);
+      }
+      fence_regs(om);
+      fence_regs(os);
+      wgmma_fence();
+#pragma unroll
+      for (int e = 0; e < kTfGroup; ++e) {
+        const int i = g + e;
+        if (8 * i < Lk) {
+          const int at = (i / 4) * L::vt_slab + (i % 4) * 32;
+          const uint64_t bhi = dv + ((L::off_vt_hi + at) >> 4);
+          const uint64_t blo = dv + ((L::off_vt_lo + at) >> 4);
+          wgmma_rs_tf32<Dp>(os, pa[e].lo, bhi, i > 0);
+          wgmma_rs_tf32<Dp>(os, pa[e].hi, blo, 1);
+          wgmma_rs_tf32<Dp>(om, pa[e].hi, bhi, i > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+    }
+  }
+  fence_regs(om);
+  fence_regs(os);
+
+  // O and the rows' log-sum-exp, straight from the registers (the rows
+  // past Lq and the columns past D skipped; D is a multiple of 4)
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (row[e] >= Lq) continue;
+    float* orow = out + ((size_t)bh * Lq + row[e]) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int d = 8 * dt + 2 * tq4;
+      if (d < D)
+        *reinterpret_cast<float2*>(orow + d) =
+            make_float2(om[4 * dt + 2 * e] + os[4 * dt + 2 * e],
+                        om[4 * dt + 2 * e + 1] + os[4 * dt + 2 * e + 1]);
+    }
+    if (lse != nullptr && tq4 == 0) lse[(size_t)bh * Lq + row[e]] = (m[e] + log2f(l[e])) * kLn2;
+  }
+}
+
+template <int NK, int DT>
+int launch_tf32_dt(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   void* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale,
+                   float rate, float keep_scale, int seed, int hb, cudaStream_t stream) {
+  // 16-byte loads of K, as the bf16 design's TMA needs: every tensor of the
+  // design 16-byte aligned
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaError_t err = raise_smem_limit<attention_fwd_wgmma_tf32_kernel<NK, DT>>();
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = B * H * ((Lq + kWgRows - 1) / kWgRows);
+  attention_fwd_wgmma_tf32_kernel<NK, DT><<<blocks, kTfThreads, TfLayout<NK, DT>::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(lse), H, Lq,
+      Lk, D, Lm, scale, rate, keep_scale, (uint32_t)seed, hb);
+  return (int)cudaGetLastError();
+}
+
+// Whether the TF32 design takes (Lk, D): up to 128 keys, 16-byte rows (D a
+// multiple of 4) and D <= 64 (Dp 32, 48 or 64)
+inline bool tf32_takes(int Lk, int D) { return Lk <= kWgKeys && D % 4 == 0 && D <= 64; }
+
+// f(WgInstance<NK, DT>{}) for the TF32 instance of (Lk, D) that tf32_takes:
+// the keys padded to NK = 64 or 128, the head columns to 8 DT
+template <typename F>
+int with_tf32_instance(int Lk, int D, F&& f) {
+  const bool wide = Lk > 64;
+  switch (head_tiles(D)) {
+    case 4: return wide ? f(WgInstance<128, 4>{}) : f(WgInstance<64, 4>{});
+    case 6: return wide ? f(WgInstance<128, 6>{}) : f(WgInstance<64, 6>{});
+    default: return wide ? f(WgInstance<128, 8>{}) : f(WgInstance<64, 8>{});
+  }
+}
+
+int launch_tf32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                void* lse, int B, int H, int Lq, int Lk, int D, int Lm, float scale, float rate,
+                float keep_scale, int seed, int hb, cudaStream_t stream) {
+  return with_tf32_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_tf32_dt<I::NK, I::DT>(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale,
+                                        rate, keep_scale, seed, hb, stream);
+  });
+}
+
 }  // namespace
 
-// The design a launch takes: 0 the mma.sync one-pass online softmax (fp32,
-// and bf16 -pallas where the wgmma design does not take it), 1 the
-// mma.sync two-pass rounding instance (bf16 with round_p where the wgmma
-// design does not take it), 2 the wgmma design (bf16 in either mode with
-// Lk <= kWgKeys and D a multiple of 8, which TMA's 16-byte row strides
-// need); -1 on bad input.
+// The design a launch takes: 0 the mma.sync one-pass online softmax (fp32
+// where the TF32 design does not take it, and bf16 -pallas where the wgmma
+// design does not), 1 the mma.sync two-pass rounding instance (bf16 with
+// round_p where the wgmma design does not take it), 2 the wgmma design
+// (bf16 in either mode with Lk <= kWgKeys and D a multiple of 8, which
+// TMA's 16-byte row strides need), 3 the TF32 wgmma design (fp32 where
+// tf32_takes: every flagship shape); -1 on bad input.
 extern "C" int attention_fwd_design(int dtype, int round_p, int Lk, int D) {
   if (Lk < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 1 && Lk <= kWgKeys && D % 8 == 0) return 2;
+  if (dtype == 0 && tf32_takes(Lk, D)) return 3;
   return dtype == 1 && round_p ? 1 : 0;
 }
 
@@ -694,7 +1060,7 @@ extern "C" int attention_fwd_design(int dtype, int round_p, int Lk, int D) {
 // lse float32 [B,H,Lq] or null (not written). keep_scale is the fp32
 // 1 / (1 - rate), keep_rcp the fp32 1 / bf16(1 - rate); round_p (bf16
 // only: in fp32 the two modes are one function) rounds P as the JAX default
-// path does. The wgmma design takes 16-byte aligned q, k, v and out.
+// path does. The wgmma designs take 16-byte aligned q, k, v and out.
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, void* lse, int dtype,
@@ -718,6 +1084,9 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
     case 2:
       return launch_wgmma(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale, rate,
                           keep_scale, keep_rcp, seed, hb, round_p, s);
+    case 3:
+      return launch_tf32(q, k, v, mask, out, lse, B, H, Lq, Lk, D, Lm, scale, rate, keep_scale,
+                         seed, hb, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -751,6 +1120,34 @@ extern "C" int attention_fwd_wgmma_blocks_per_sm(int Lq, int Lk, int D, int roun
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 128 * wg_count(Lq),
                                                         WgLayout<I::NK, I::DT>::bytes(wg_count(Lq)));
+    return err == cudaSuccess ? blocks : -(int)err;
+  });
+}
+
+// Bytes of dynamic shared memory one block of the TF32 wgmma design takes
+// at (Lq, Lk, D) (0 where the design takes no such launch).
+extern "C" int attention_fwd_tf32_smem(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_fwd_design(0, 0, Lk, D) != 3) return 0;
+  return with_tf32_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    return (int)TfLayout<I::NK, I::DT>::bytes;
+  });
+}
+
+// Blocks of the TF32 wgmma design at (Lq, Lk, D) that one SM holds at
+// once, as the CUDA occupancy calculator gives them from the kernel's
+// registers, threads and shared memory; a negative CUDA error code on
+// failure.
+extern "C" int attention_fwd_tf32_blocks_per_sm(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_fwd_design(0, 0, Lk, D) != 3) return -(int)cudaErrorInvalidValue;
+  return with_tf32_instance(Lk, D, [&](auto inst) {
+    using I = decltype(inst);
+    cudaError_t err = raise_smem_limit<attention_fwd_wgmma_tf32_kernel<I::NK, I::DT>>();
+    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, attention_fwd_wgmma_tf32_kernel<I::NK, I::DT>, kTfThreads,
+        TfLayout<I::NK, I::DT>::bytes);
     return err == cudaSuccess ? blocks : -(int)err;
   });
 }

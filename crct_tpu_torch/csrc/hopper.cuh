@@ -16,7 +16,8 @@
 // descriptor's leading offset the bytes between its slabs. A product that
 // takes only some of an MN-major operand's columns starts that many
 // bytes along the row (a multiple of 16): the swizzle is a function of
-// the address, so the columns stay where TMA put them.
+// the address, so the columns stay where TMA put them. A K-major tile of
+// 64-byte rows (desc_b64) swizzles within 8-row atoms of 512 bytes.
 #pragma once
 
 #include <cuda.h>
@@ -117,6 +118,14 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 __device__ __forceinline__ uint64_t desc_b128(const void* p, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// descriptor of a 64-byte-swizzled K-major operand at p (64-byte rows, the
+// 16-byte chunk c of row r at r * 64 + ((c ^ ((r / 2) % 4)) * 16), in atoms
+// of 8 rows, 512 bytes): 8-row atoms `sbo` bytes apart
+__device__ __forceinline__ uint64_t desc_b64(const void* p, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -480,7 +489,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4 * DT], const uint32_t (&a)
   }
 }
 
-// ---- TF32 wgmma (fp32 inputs, 3xTF32 in attention_bwd.cu) ---------------
+// ---- TF32 wgmma (fp32 inputs, 3xTF32 in attention_{fwd,bwd}.cu) ---------
 //
 // TF32 products take K-major operands from shared memory only (the
 // transpose bits are 16-bit types'); a k-step is 8 elements, 32 bytes, so
@@ -539,6 +548,29 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 128) = A B (+ d with scale_d) in TF32: A 64 x 8 from registers
+// (TF32 bit patterns), B 8 x 128 K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 32) = A B (+ d with scale_d) in TF32: A 64 x 8 and B 8 x 32,
 // both K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a, uint64_t b,
@@ -554,16 +586,30 @@ __device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a, ui
 }
 
 // d (64 x N) += A B in TF32, A from registers and B K-major in shared
-// memory, for the N the attention backward takes
+// memory, for the N the attention kernels take
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t b, int scale_d) {
   if constexpr (N == 32) wgmma_rs_tf32_n32(d, a, b, scale_d);
   else if constexpr (N == 48) wgmma_rs_tf32_n48(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_rs_tf32_n64(d, a, b, scale_d);
   else {
-    static_assert(N == 64, "no such product");
-    wgmma_rs_tf32_n64(d, a, b, scale_d);
+    static_assert(N == 128, "no such product");
+    wgmma_rs_tf32_n128(d, a, b, scale_d);
   }
+}
+
+// c = a b, or with scale_d c += a b, in 3xTF32 (the small terms first): A
+// from registers (a fragment with TF32 hi[4] and lo[4]), B's hi and lo
+// tiles by their descriptors. A chain's first product takes scale_d 0
+// rather than zeroed accumulators: no instruction writes them between
+// products, which would serialise every product (ptxas C7515).
+template <int N, typename Frag>
+__device__ __forceinline__ void wgmma_rs_3xtf32(float (&d)[N / 2], const Frag& a, uint64_t bh,
+                                                uint64_t bl, int scale_d) {
+  wgmma_rs_tf32<N>(d, a.lo, bh, scale_d);
+  wgmma_rs_tf32<N>(d, a.hi, bl, 1);
+  wgmma_rs_tf32<N>(d, a.hi, bh, 1);
 }
 
 // ---- accumulators into swizzled tiles ---------------------------------------

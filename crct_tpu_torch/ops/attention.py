@@ -60,15 +60,19 @@ fp32-accurate; bf16 products for bf16 inputs, where the score gradients,
 and in ``PALLAS`` mode the probabilities, enter split into a bf16 high and
 low part (about 16 significant bits, finer than TF32, so that they stay
 fp32-like as in the JAX Pallas path). In ``ROUND_PROBS`` mode P is bf16
-and P.V and dv take one bf16 product. K1 has three designs, picked by
+and P.V and dv take one bf16 product. K1 has four designs, picked by
 dtype, mode and shape (:func:`fwd_design`): with bf16 inputs in either
 mode, up to 128 keys and D a multiple of 8 (every bf16 train, eval and
 serve step at the flagship shapes) one pass over the whole key row on
 Hopper's ``wgmma`` and TMA copies (in ``PALLAS`` mode P as bf16 hi + lo,
-two register-A products a k-step); past 128 keys in ``ROUND_PROBS`` mode
-two ``mma.sync`` passes over the key tiles, the first for the rows' max
-and sum, so that it rounds the normalized P as JAX does; fp32 and the rest
-an ``mma.sync`` online softmax. K2 has four (:func:`bwd_design`): with
+two register-A products a k-step); with fp32 inputs, up to 128 keys, D a
+multiple of 4 and at most 64 (every fp32 serve, eval and ingest step at
+the flagship shapes) the same pass on TF32 ``wgmma`` in 3xTF32, Q and P
+the register A operands, K and V^T split into TF32 hi and lo tiles; past
+128 keys in ``ROUND_PROBS`` mode two ``mma.sync`` passes over the key
+tiles, the first for the rows' max and sum, so that it rounds the
+normalized P as JAX does; the rest an ``mma.sync`` online softmax. K2 has
+four (:func:`bwd_design`): with
 bf16 inputs in either mode, up to 128 keys and D a multiple of 8 (every
 bf16 train step at the flagship shapes) a warpgroup a 64-key slab on
 ``wgmma`` and TMA copies, P and dS through shared memory for dv, dk and
@@ -378,7 +382,8 @@ def _scalars(q: torch.Tensor, dropout_rate: float, seed: int, mode: str):
 
 # K1's designs, by the code csrc/attention_fwd.cu's attention_fwd_design
 # gives them
-FWD_DESIGNS = {0: "mma.sync", 1: "mma.sync two-pass", 2: "wgmma"}
+FWD_DESIGNS = {0: "mma.sync", 1: "mma.sync two-pass", 2: "wgmma",
+               3: "wgmma tf32"}
 
 
 def fwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:

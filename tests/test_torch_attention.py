@@ -259,3 +259,24 @@ def test_kernels_reciprocal_rounds_as_the_division(rate):
     want = (x / port.keep_divisor(rate)).to(torch.bfloat16)
     got = (x * rcp).to(torch.bfloat16)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_tf32_split_keeps_the_forward_fp32_accurate():
+    """The 3xTF32 split of K1's fp32 design (the TF32 wgmma design of
+    csrc/attention_fwd.cu), its two products (q k^T, then the normalized P
+    times the keep multipliers, v) emulated here with TF32 rounding by bit
+    operations, against the plain version (held against JAX above) at the
+    flagship's text shape at two rows, with a full mask and dropout: within
+    1e-5, as chip_smoke.py holds K1 in fp32. One TF32 product alone (the
+    control) misses that by far."""
+    # the backward's file imports this one's helpers
+    from tests.test_torch_attention_bwd import tf32_matmul
+    q, k, v, mask = (torch.from_numpy(x) for x in make_qkv(
+        13, B=2, H=16, Lq=124, Lk=124, D=48, full_mask=True))
+    want = port.attention_reference(q, k, v, mask, 0.1, 5)
+    keep = port.keep_mask((2, 16, 124, 124), 5, 0.1, "cpu")
+    for terms, within in ((3, True), (1, False)):
+        s = tf32_matmul(q, k.transpose(-1, -2), terms) * port._scale(48)
+        got = tf32_matmul(port._softmax(s + mask)[0] * keep, v, terms)
+        err = (got - want).abs().max().item()
+        assert (err <= 1e-5) == within, (terms, err)

@@ -250,28 +250,41 @@ def test_wgmma_pallas_design_matches_plain_on_card(card, Lq, Lk, D):
 
 def test_wgmma_design_takes_the_flagship_default_mode_on_card(card):
     """The bf16 launches at the flagship shapes take the wgmma design in
-    both modes; fp32 keeps the mma.sync design, and past 128 keys or at a
-    D that is not a multiple of 8 the default mode takes the two-pass
-    instance and -pallas the one-pass mma.sync one."""
+    both modes, the fp32 ones the TF32 wgmma design (one kernel for both
+    modes); past 128 keys or at a D that is not a multiple of 8 the bf16
+    default mode takes the two-pass instance and -pallas the one-pass
+    mma.sync one, and fp32 past 128 keys or at a D past 64 or not a
+    multiple of 4 the mma.sync one."""
     for Lk, D in ((124, 48), (44, 64), (44, 32), (124, 32)):
         for mode in attention.MODES:
             assert attention.fwd_design(torch.bfloat16, mode, Lk, D) \
                 == "wgmma"
             assert attention.fwd_design(torch.float32, mode, Lk, D) \
-                == "mma.sync"
+                == "wgmma tf32"
     for Lk, D in ((300, 64), (44, 12)):
         assert attention.fwd_design(torch.bfloat16, attention.ROUND_PROBS,
                                     Lk, D) == "mma.sync two-pass"
         assert attention.fwd_design(torch.bfloat16, attention.PALLAS, Lk,
                                     D) == "mma.sync"
+    assert attention.fwd_design(torch.float32, attention.ROUND_PROBS, 44,
+                                12) == "wgmma tf32"
+    for Lk, D in ((300, 64), (44, 128), (44, 6)):
+        for mode in attention.MODES:
+            assert attention.fwd_design(torch.float32, mode, Lk, D) \
+                == "mma.sync"
 
 
-@MODES
-def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card, mode):
-    """TMA reads 16-byte aligned tensors: a contiguous view 2 bytes into
-    its storage raises at the launch, which is not counted, rather than
-    taking another design, in either bf16 mode."""
-    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, torch.bfloat16, card)
+@pytest.mark.parametrize("dtype, mode",
+                         [(torch.bfloat16, m) for m in attention.MODES]
+                         + [(torch.float32, attention.ROUND_PROBS)],
+                         ids=[f"bfloat16-{m}" for m in attention.MODES]
+                         + ["float32"])
+def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card, dtype, mode):
+    """The wgmma designs read 16-byte aligned tensors (TMA, and the TF32
+    design's 16-byte loads of K): a contiguous view one element (2 or 4
+    bytes) into its storage raises at the launch, which is not counted,
+    rather than taking another design, in either bf16 mode and in fp32."""
+    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, dtype, card)
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
     shifted = flat[1:].view(q.shape)
     shifted.copy_(q)
@@ -279,6 +292,61 @@ def test_wgmma_design_refuses_a_misaligned_tensor_on_card(card, mode):
     with pytest.raises(RuntimeError, match="CUDA error 716"):
         attention.fused_attention(shifted, k, v, mask, mode=mode)
     assert attention.launch_count() == before
+
+
+# K1's TF32 wgmma design (fp32, up to 128 keys, D a multiple of 4 and at
+# most 64) at its edges: query rows around its 64-row blocks, keys around
+# its 64- and 128-key instances and the flagship 44 and 124, the head
+# widths of its three instances (D 4 and 44 padded within them); key-only
+# and full masks, dropout 0 and 0.1. The output within 1e-5 (atol and rtol)
+# and the log-sum-exp within 1e-5 of max(1, |lse|) of the plain version's,
+# as chip_smoke.py holds K1 in fp32. With dropout and no more keys than
+# head columns, V's rows are the unit vectors, so that the output's zeros
+# are the dropped probabilities: the same keep mask as the plain version's.
+# With the full mask every fifth query row is masked at every key: its
+# scores lie near -1e4, where fp32 keeps steps of 2^-10 (9.8e-4), and the
+# kernel (in log2 units, one rounding more) and the plain version round
+# them apart, which moves each probability by up to 2.6e-3 of itself; those
+# rows are held at FULLY_MASKED (2.6e-3 of the output's up to ~4.5 at rate
+# 0.1 is 1.2e-2), the rest at 1e-5.
+FULLY_MASKED = 2e-2
+
+
+@pytest.mark.parametrize("D", [4, 16, 32, 44, 48, 64])
+@pytest.mark.parametrize("Lk", [1, 9, 44, 63, 64, 65, 124, 128])
+@pytest.mark.parametrize("Lq", [1, 63, 64, 65, 124, 129])
+def test_wgmma_tf32_forward_matches_plain_on_card(card, Lq, Lk, D):
+    B, H = 4, 8
+    for mode in attention.MODES:
+        assert attention.fwd_design(torch.float32, mode, Lk, D) \
+            == "wgmma tf32"
+    tol = TOL[torch.float32]
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = make_qkv(Lq * Lk + D + 2, B, H, Lq, Lk, D,
+                                     Lq if full else 1, torch.float32, card)
+            masked = torch.zeros(Lq, dtype=torch.bool, device=card)
+            if full:
+                masked[3::5] = True
+                mask[:, :, masked] = -10000.0
+            before = attention.launch_count()
+            out, lse = attention.attention_forward(q, k, v, mask, rate, 21)
+            assert attention.launch_count() == before + 1
+            want, want_lse = attention.attention_reference(
+                q, k, v, mask, rate, 21, return_lse=True)
+            top = max(1.0, want_lse.abs().max().item())
+            torch.testing.assert_close(lse, want_lse, atol=1e-5 * top, rtol=0)
+            torch.testing.assert_close(out[:, :, ~masked], want[:, :, ~masked],
+                                       atol=tol, rtol=tol)
+            torch.testing.assert_close(out[:, :, masked], want[:, :, masked],
+                                       atol=FULLY_MASKED, rtol=0)
+            if rate > 0 and Lk <= D:
+                eye = torch.eye(Lk, D, device=card).expand(
+                    B, H, Lk, D).contiguous()
+                got = attention.fused_attention(q, k, eye, mask, rate, 21)
+                drop = attention.attention_reference(q, k, eye, mask, rate,
+                                                     21)
+                assert torch.equal(got == 0, drop == 0)
 
 
 # K2's wgmma design (bf16, up to 128 keys, D a multiple of 8) at its edges:
