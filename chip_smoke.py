@@ -466,19 +466,21 @@ def sass_count(build, name, part, opcode):
 
 
 # the wgmma designs' kernels: K1's attention_fwd_wgmma_kernel<NK, DT, ROUND>
-# and K2's attention_bwd_wgmma_kernel<NK, DT, ROUND> (bf16) and
-# attention_bwd_wgmma_tf32_kernel<NK, DT> (fp32)
+# and K2's attention_bwd_wgmma_kernel<NK, DT, ROUND> (bf16),
+# attention_bwd_wgmma_tf32_kernel<NK, DT> and
+# attention_bwd_wgmma_tf32_tma_kernel<NK, DT> (fp32)
 WGMMA_KERNELS = {"attention_fwd": "K1", "attention_bwd": "K2"}
 
 
 def wgmma_instance(fn):
     """(NK, 8 DT, mode) of a mangled wgmma kernel: 'NK n, Dp d' and its
     attention mode ("" where the instance has none), "fp32" for a TF32
-    instance."""
+    instance, "fp32 tma" for the TF32 TMA design's."""
     import re
-    tf, nk, dt, rnd = re.search(
-        r"wgmma(_tf32)?_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?", fn).groups()
-    mode = ("fp32" if tf else "" if rnd is None
+    tf, tma, nk, dt, rnd = re.search(
+        r"wgmma(_tf32)?(_tma)?_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
+        fn).groups()
+    mode = ("fp32 tma" if tma else "fp32" if tf else "" if rnd is None
             else DEFAULT if rnd == "1" else PALLAS)
     return int(nk), 8 * int(dt), mode
 
@@ -590,7 +592,9 @@ def wgmma_occupancy(build, attention, failures):
     say("build", f"attention_fwd wgmma per block on {sms} SMs at B = "
                  f"{B}: " + "; ".join(parts))
     lib = build.load("attention_bwd")
-    for name in ("wgmma", "tf32"):
+    names = ("wgmma", "tf32") + (
+        ("tf32_tma",) if hasattr(lib, "attention_bwd_tf32_tma_smem") else ())
+    for name in names:
         smem_fn = getattr(lib, f"attention_bwd_{name}_smem")
         per_sm_fn = getattr(lib, f"attention_bwd_{name}_blocks_per_sm")
         for fn in (smem_fn, per_sm_fn):
@@ -610,6 +614,10 @@ def wgmma_occupancy(build, attention, failures):
                 mode = "both"
                 smem = lib.attention_bwd_tf32_smem(Lq, Lk, D)
                 per_sm = lib.attention_bwd_tf32_blocks_per_sm(Lq, Lk, D)
+            elif design == "wgmma tf32 tma":
+                mode = "both"
+                smem = lib.attention_bwd_tf32_tma_smem(Lq, Lk, D)
+                per_sm = lib.attention_bwd_tf32_tma_blocks_per_sm(Lq, Lk, D)
             else:
                 continue
             nwg = 2 if Lk > 64 else 1
@@ -619,6 +627,7 @@ def wgmma_occupancy(build, attention, failures):
                                 f"{what}: {smem} bytes, {per_sm} blocks")
                 continue
             occ[("bwd", kname, mode)] = (smem, 4 * nwg, per_sm)
+            occ[("bwd design", kname, mode)] = design
             parts.append(f"{what} ({design}) {smem / 1024:.1f} KB, "
                          f"{4 * nwg} warps, {per_sm} blocks, "
                          f"{B_TRAIN * H / (per_sm * sms):.2f} waves")
@@ -1074,6 +1083,18 @@ def check_bwd_kernel(attention, name, shape, failures):
                          nbytes)
         if hasattr(attention, "bwd_design"):
             row["design"] = attention.bwd_design(dtype, mode, Lk, D)
+            # two launches on the same inputs with dropout, bit for bit
+            # (one block owns a (batch, head): no atomics, fixed sums)
+            o2, l2 = attention.attention_forward(q, k, v, mask, 0.1, SEED,
+                                                 mode=mode)
+            first, second = (attention._launch_bwd(
+                q, k, v, mask, gr, o2, l2, 0.1, SEED, mode) for _ in range(2))
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            row["bit_equal"] = all(torch.equal(a.view(bits), b.view(bits))
+                                   for a, b in zip(first, second))
+            if not row["bit_equal"]:
+                failures.append(f"K2 {name} {dname} {mode}: two launches "
+                                f"differ")
         rows.append((row, flops, nbytes, rnd, sh))
 
     # out is linear in v: <out, C> = <v, dv> only with the forward's mask
@@ -5194,6 +5215,14 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
         if min(per_sm) < 1:
             failures.append(f"attention_bwd occupancy of {kname}: {per_sm}")
             continue
+        # beside it, the design that fp32 launches of the shape take
+        # where it is another (the TF32 TMA design at vision's D 64)
+        other = ""
+        if wg_occ.get(("bwd design", kname, "both")) == "wgmma tf32 tma":
+            smem, warps, n = wg_occ[("bwd", kname, "both")]
+            other = (f" (fp32 on wgmma tf32 tma: {smem / 1024:.1f} KB, "
+                     f"{warps} warps, {n} blocks, "
+                     f"{B_TRAIN * H / (n * sms):.2f} waves)")
         occ.append(f"{kname} "
                    f"{lib.attention_bwd_smem(Lq, Lk, D, 0) / 1024:.1f}/"
                    f"{lib.attention_bwd_smem(Lq, Lk, D, 1) / 1024:.1f} KB, "
@@ -5201,7 +5230,7 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                    f"{lib.attention_bwd_key_tile(Lq, Lk, D, 1) // 16} warps, "
                    f"{per_sm[0]}/{per_sm[1]} blocks, "
                    + "/".join(f"{B_TRAIN * H / (n * sms):.2f}"
-                              for n in per_sm) + " waves")
+                              for n in per_sm) + " waves" + other)
     say("build", f"attention_bwd mma.sync per block (fp32/bf16, the "
                  f"{PALLAS} instances) on {sms} SMs at B = {B_TRAIN}: "
                  + "; ".join(occ))
@@ -5221,7 +5250,11 @@ def kernel_phase(card, attention, build, roi_align, rk, failures):
                           f"{row['max_abs_err']:.3g} (tol "
                           f"{K_TOL[row['dtype']]} of "
                           f"max(1, |grad|)); <out,C> = <v,dv> under dropout "
-                          f"to {ident:.2g} relative; kernel {row['ms']:.4f} "
+                          f"to {ident:.2g} relative; "
+                          + {True: "two launches bit-equal; ",
+                             False: "two launches DIFFER; ",
+                             None: ""}[row.get("bit_equal")]
+                          + f"kernel {row['ms']:.4f} "
                           f"ms, plain {row['plain_ms']:.4f} ms, sdpa backward"
                           f" {row['library_ms']:.4f} ms (device times),"
                           f" bound {row['bound_ms']:.4f} ms "

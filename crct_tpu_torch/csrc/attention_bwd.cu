@@ -33,9 +33,11 @@
 // (H 16, Lq = Lk = 124, D 48) that is 9.4 GFLOP and 214 MB in fp32 (0.141 ms
 // at the 67 TFLOP/s fp32 rate, 0.064 ms at 3.35 TB/s: operations bound the
 // fp32 row), and 107 MB in bf16 (0.032 ms of bytes against 0.010 ms at 989
-// TFLOP/s: bytes bound the bf16 row).
+// TFLOP/s: bytes bound the bf16 row). At the vision shape (Lq = Lk = 44, D
+// 64) it is 1.59 GFLOP against 101 MB in fp32: bytes bound the TF32 TMA
+// design (0.030 ms, its 3xTF32 products 0.010 ms at a third of 495 TFLOP/s).
 //
-// Three designs; attention_bwd picks one by dtype, mode and shape alone
+// Four designs; attention_bwd picks one by dtype, mode and shape alone
 // (attention_bwd_design), and a launch that fails raises, never falls back.
 // All take one block per (batch, head), so dk and dv of a key and dq of a
 // query are each summed inside one block, without atomics, in a fixed
@@ -92,6 +94,30 @@
 // shared memory. delta keeps the mma.sync design's order. A block of 4 or
 // 8 warps takes 93-204 KB of shared memory at the flagship shapes, one or
 // two blocks an SM (the budget in PERF.md).
+//
+// The TF32 TMA design (fp32 with Lk <= 64 and 48 < D <= 64, D a multiple
+// of 4: tf32_tma_takes; the flagship vision self-attention, 44 keys at D
+// 64) takes the TF32 design's products in a block of one warpgroup that
+// holds 97.5 KB, so that two blocks share an SM (the TF32 design at D 64
+// held 165 KB, one warpgroup an SM), and each block is persistent over an
+// equal share of the (batch, head) items. Thread 0 has TMA copy K and V of
+// an item and Q and G a chunk of 32 queries at a time, fp32 in the 128-byte
+// swizzle that TF32 wgmma reads (3-D tensor maps, zeros past Lk, Lq and D):
+// the next chunk's Q and G, or the next item's first with its V, once
+// every warp's S^T and dP^T have read the current ones, and the next item's
+// K once its dQ^T has; so an item's copies run behind the last one's
+// products. The raw Q and G tiles are the high parts of S^T's and dP^T's B
+// operands as they lie: the hardware reads a TF32 operand's top 19 bits, a
+// truncated high part, so the threads write only the low parts, x -
+// trunc(x) rounded to TF32, into tiles of the same layout, and in the same
+// pass Q^T and G^T (dK's and dV's B) as the raw values and those low parts
+// (a last chunk of at most 16 queries by warp pairs, a matrix each).
+// K and V, the register A operands of S^T and dP^T, are split as they load
+// from their tiles; dS goes in hi and lo into the low parts' place, the B
+// operand of dQ^T = K^T dS^T, whose A is K^T split as it loads across K's
+// tile. One warpgroup owns all the keys, so delta and dQ take no other
+// warpgroup's sums. dV and dK sum in their accumulators over up to
+// kTmaFlush chunks (128 queries) at a time, then into dv and dk (kFlush).
 //
 // The mma.sync design (fp32 where no wgmma design takes it, and past 128
 // keys): the block's W <= 8 warps take a key tile of 16 W keys (all of them
@@ -1046,7 +1072,8 @@ constexpr int kTfChunk = 32;  // queries of a chunk
 // Whether the TF32 design takes (Lk, D): up to 128 keys, 16-byte rows and
 // D <= 48. At 128 keys wider heads do not fit an SM's shared memory; at 64
 // keys D = 64 (the flagship vision shape) fits, one warpgroup a block and
-// one block an SM, but measured no faster than the mma.sync design (PERF.md).
+// one block an SM, but measured no faster than the mma.sync design
+// (PERF.md): the TF32 TMA design takes 48 < D <= 64 up to 64 keys.
 __host__ __device__ inline bool tf32_takes(int Lk, int D) {
   return Lk <= kWgKeys && D % 4 == 0 && D <= 48;
 }
@@ -1510,6 +1537,482 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* mask, c
   });
 }
 
+
+// ---- the TF32 TMA design (fp32 at D 64; see the head of the file) -----------
+
+constexpr int kTmaChunk = 32;   // queries of a chunk
+constexpr int kTmaFlush = 4;    // chunks summed into dV's and dK's accumulators
+                                // before the sums go to dv and dk (kFlush)
+
+// Whether the TF32 TMA design takes (Lk, D): up to 64 keys (one warpgroup)
+// and 48 < D <= 64 with D a multiple of 4 (TMA's 16-byte row strides); the
+// TF32 design takes the narrower heads
+__host__ __device__ inline bool tf32_tma_takes(int Lk, int D) {
+  return Lk <= kWgRows && D % 4 == 0 && D > 48 && D <= 64;
+}
+
+// Shared memory of a block, by offset from a 1024-byte boundary. K and V as
+// TMA writes them (fp32, K-major: two 32-column (128-byte) swizzled slabs
+// of 64 key rows, zeros past Lk and D), and Q and G of a chunk likewise
+// (slabs of 32 query rows): the B operands of S^T = K Q^T and dP^T = V G^T
+// as they are, the hardware reading a TF32 operand's top 19 bits (a
+// truncated high part), and the sources of every other operand. Q's and G's
+// low parts, x - trunc(x) rounded to TF32, in the same layout (those B
+// operands' small terms), whose place dS takes in hi and lo (rows of
+// queries, 64 keys: dQ^T's B) once S^T and dP^T are done. Q^T and G^T,
+// the raw values (a truncated high part) and their low parts (rows of head
+// columns, the chunk's 32 queries in the register A operand's k order:
+// dK's and dV's B). Each warp's part of delta and the mbarriers.
+struct TmaLayout {
+  static constexpr int C = kTmaChunk;
+  static constexpr int kv = 2 * kWgRows * kRow;
+  static constexpr int qg = 2 * C * kRow;
+  static constexpr int qt = kWgRows * kRow;
+  static constexpr int off_k = 0, off_v = kv, off_q = 2 * kv, off_g = off_q + qg,
+                       off_q_lo = off_g + qg, off_g_lo = off_q_lo + qg, off_ds_hi = off_q_lo,
+                       off_ds_lo = off_g_lo, off_qt_hi = off_g_lo + qg, off_qt_lo = off_qt_hi + qt,
+                       off_gt_hi = off_qt_lo + qt, off_gt_lo = off_gt_hi + qt,
+                       off_part = off_gt_lo + qt, off_bars = off_part + 4 * C * 4,
+                       end = off_bars + 3 * 8;
+  static constexpr size_t bytes = 1024 + end;
+  static_assert(4 * C == kRow, "a row of Q^T or G^T is one 128-byte slab");
+};
+
+// byte offset of element (r, c) of a tile of 32-column 128-byte swizzled
+// slabs of `rows` rows (as TMA writes an fp32 box)
+__device__ __forceinline__ int sw32(int r, int c, int rows) {
+  return (c >> 5) * rows * kRow + r * kRow + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// x's TF32 low part against the truncated high part that the hardware
+// reads from x itself
+__device__ __forceinline__ uint32_t tf32_lo_of_raw(float x) {
+  return tf32_rna(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));
+}
+
+// A (64 x 8, from registers) of rows [r0, r0 + 16) x columns [k0, k0 + 8)
+// of a swizzled fp32 tile of `rows` rows, split (load_a_tf32); transposed:
+// rows [r0, r0 + 16) of the tile's columns by k0 .. k0 + 7 of its rows
+template <bool TRANS>
+__device__ __forceinline__ FragA load_a_sw(const unsigned char* s, int rows, int r0, int k0,
+                                           int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+  auto at = [&](int r, int k) {
+    return *reinterpret_cast<const float*>(s + (TRANS ? sw32(k, r, rows) : sw32(r, k, rows)));
+  };
+  FragA f;
+  split_tf32(at(r0 + gr, k0 + tq), f.hi[0], f.lo[0]);
+  split_tf32(at(r0 + gr + 8, k0 + tq), f.hi[1], f.lo[1]);
+  split_tf32(at(r0 + gr, k0 + tq + 4), f.hi[2], f.lo[2]);
+  split_tf32(at(r0 + gr + 8, k0 + tq + 4), f.hi[3], f.lo[3]);
+  return f;
+}
+
+template <int NK, int DT>
+__global__ void __launch_bounds__(128, 2)
+attention_bwd_wgmma_tf32_tma_kernel(const __grid_constant__ CUtensorMap tmq,
+                                    const __grid_constant__ CUtensorMap tmk,
+                                    const __grid_constant__ CUtensorMap tmv,
+                                    const __grid_constant__ CUtensorMap tmg,
+                                    const float* __restrict__ mask, const float* __restrict__ lse,
+                                    float* __restrict__ dq, float* __restrict__ dk,
+                                    float* __restrict__ dv, int BH, int H, int Lq, int Lk, int D,
+                                    int Lm, float scale, float rate, float keep_scale,
+                                    uint32_t seed, int hb) {
+  using namespace hopper;
+  using L = TmaLayout;
+  constexpr int C = L::C;
+  static_assert(NK == kWgRows && DT == 8, "one warpgroup of 64 keys, 64 head columns");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the first 1024-byte boundary, as an offset into smem_raw (shared-memory
+  // loads and stores, not generic ones)
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* sPart = reinterpret_cast<float*>(sm + L::off_part);  // [warp][query]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::off_bars);  // K; Q and G; V
+
+  const int nchunks = (Lq + C - 1) / C;
+  const int t = threadIdx.x;
+  const int w = t >> 5;
+  const int lane = t & 31;
+  const int gr = lane >> 2, tq4 = lane & 3;
+  const int key[2] = {16 * w + gr, 16 * w + gr + 8};
+
+  // the copies of a (batch, head) item (thread 0): Q and G of chunk c; K
+  // (which 0) or V (which 1)
+  auto load_chunk = [&](int item, int c) {
+    mbar_expect_tx(&bars[1], 2 * L::qg);
+    for (int s = 0; s < 2; ++s) {
+      tma_load_3d(sm + L::off_q + s * C * kRow, &tmq, &bars[1], 32 * s, C * c, item);
+      tma_load_3d(sm + L::off_g + s * C * kRow, &tmg, &bars[1], 32 * s, C * c, item);
+    }
+  };
+  auto load_kv = [&](int item, int which) {
+    const CUtensorMap* map = which ? &tmv : &tmk;
+    uint64_t* bar = &bars[which ? 2 : 0];
+    mbar_expect_tx(bar, L::kv);
+    for (int s = 0; s < 2; ++s)
+      tma_load_3d(sm + (which ? L::off_v : L::off_k) + s * NK * kRow, map, bar, 32 * s, 0, item);
+  };
+  if (t == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (t == 0) {
+    load_kv(blockIdx.x, 0);
+    load_chunk(blockIdx.x, 0);
+    load_kv(blockIdx.x, 1);
+  }
+  const bool dropout = rate > 0.f;
+  // dV and dK of the warpgroup's keys (rows) by the head columns; past the
+  // first kTmaFlush chunks their sums so far wait in dv and dk
+  float dva[4 * DT], dka[4 * DT];
+
+  // the block's (batch, head) items, blockIdx.x + n gridDim.x: an item's
+  // K, V and first Q and G are copied while the last item's products run
+  int qphase = 0;  // chunks of Q and G waited for so far
+  for (int bh = blockIdx.x, n = 0; bh < BH; bh += gridDim.x, ++n) {
+    const int b = bh / H;
+    const int h = bh - b * H;
+    const int next = bh + gridDim.x;
+    const DropoutStream drop(seed, b, h, H, hb);
+    const float* mb = mask + (size_t)b * Lm * Lk;
+    // a key-only mask's values at the thread's two keys (-inf past the last)
+    float mk[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+      mk[rh] = Lm == 1 && key[rh] < Lk ? mask[(size_t)b * Lk + key[rh]] : -CUDART_INF_F;
+    auto flush = [&](bool add, bool last) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int j = key[rh];
+        if (j >= Lk) continue;
+        float* dkr = dk + ((size_t)bh * Lk + j) * D;
+        float* dvr = dv + ((size_t)bh * Lk + j) * D;
+#pragma unroll
+        for (int i = 0; i < DT; ++i) {
+          const int d = 8 * i + 2 * tq4;  // D is a multiple of 4: d + 1 < D
+          if (d >= D) continue;
+          float2 xk = make_float2(dka[4 * i + 2 * rh], dka[4 * i + 2 * rh + 1]);
+          float2 xv = make_float2(dva[4 * i + 2 * rh], dva[4 * i + 2 * rh + 1]);
+          if (add) {
+            const float2 pk = *reinterpret_cast<const float2*>(dkr + d);
+            const float2 pv = *reinterpret_cast<const float2*>(dvr + d);
+            xk = make_float2(xk.x + pk.x, xk.y + pk.y);
+            xv = make_float2(xv.x + pv.x, xv.y + pv.y);
+          }
+          if (last) xk = make_float2(xk.x * scale, xk.y * scale);
+          *reinterpret_cast<float2*>(dkr + d) = xk;
+          *reinterpret_cast<float2*>(dvr + d) = xv;
+        }
+      }
+    };
+
+    for (int c = 0; c < nchunks; ++c, ++qphase) {
+      const int q0 = C * c;
+      // a last chunk of at most C / 2 queries: its conversion takes half
+      // the queries, one matrix a warp pair
+      const bool tail = Lq - q0 <= C / 2;
+      // the lse (log2 units) of the thread's queries q0 + 8 i + 2 tq4 + e
+      float l2[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 + 8 * i + 2 * tq4 + e;
+          l2[i][e] = qi < Lq ? lse[(size_t)bh * Lq + qi] * kLog2e : 0.f;
+        }
+      // the descriptor of the tiles' base, made anew each chunk, and of a
+      // tile at a byte offset from it
+      uint64_t d0 = desc_b128(sm, 16, 1024);
+      asm volatile("" : "+l"(d0));
+      auto desc = [&](int off) { return d0 + (uint64_t)(off >> 4); };
+      mbar_wait(&bars[1], qphase & 1);
+
+      // 1. Q and G in one pass each: a thread takes 4 head columns (16
+      // bytes) of the 4 queries that one 16-byte chunk of a Q^T or G^T row
+      // holds, 8 (ch / 2) + (ch % 2) + 2 a, a = 0..3 (the k order of A from
+      // the accumulators, a_from_c_tf32); their low parts go to the low-part
+      // tile at the raw tile's offsets, and the raw values (the truncated high
+      // part) and the same low parts to Q^T's or G^T's rows. A warp's loads
+      // and stores each take the fewest wavefronts. In a tail the even
+      // warps take Q and the odd ones G, the first 16 queries (the rest of
+      // the low-part tiles, whatever they hold, enters only columns past Lq,
+      // and no k-step of dK or dV reads the rest of Q^T or G^T).
+      {
+        const int ch = (t & 3) | (tail ? 0 : (w & 1) << 2);
+        const int dg = (lane >> 2) | ((w >> 1) << 3);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (tail && m != (w & 1)) continue;
+          unsigned char* raw = sm + (m ? L::off_g : L::off_q);
+          unsigned char* low = sm + (m ? L::off_g_lo : L::off_q_lo);
+          unsigned char* thi = sm + (m ? L::off_gt_hi : L::off_qt_hi);
+          unsigned char* tlo = sm + (m ? L::off_gt_lo : L::off_qt_lo);
+          uint4 x[4], l[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int q = 8 * (ch >> 1) + (ch & 1) + 2 * a;
+            const int at = (dg >> 3) * (C * kRow) + q * kRow + (((dg & 7) ^ (q & 7)) << 4);
+            x[a] = *reinterpret_cast<const uint4*>(raw + at);
+            l[a] = make_uint4(tf32_lo_of_raw(__uint_as_float(x[a].x)),
+                              tf32_lo_of_raw(__uint_as_float(x[a].y)),
+                              tf32_lo_of_raw(__uint_as_float(x[a].z)),
+                              tf32_lo_of_raw(__uint_as_float(x[a].w)));
+            *reinterpret_cast<uint4*>(low + at) = l[a];
+          }
+          auto col = [](const uint4 (&v)[4], int j) {
+            return j == 0   ? make_uint4(v[0].x, v[1].x, v[2].x, v[3].x)
+                   : j == 1 ? make_uint4(v[0].y, v[1].y, v[2].y, v[3].y)
+                   : j == 2 ? make_uint4(v[0].z, v[1].z, v[2].z, v[3].z)
+                            : make_uint4(v[0].w, v[1].w, v[2].w, v[3].w);
+          };
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int d = 4 * dg + j;
+            const int at = d * kRow + ((ch ^ (d & 7)) << 4);
+            *reinterpret_cast<uint4*>(thi + at) = col(x, j);
+            *reinterpret_cast<uint4*>(tlo + at) = col(l, j);
+          }
+        }
+      }
+      fence_async_shared();
+      __syncthreads();
+
+      // 2. S^T = K Q^T and dP^T = V G^T: the warpgroup's 64 keys by the
+      // chunk's 32 queries, D / 8 k-steps, A (K, V) from registers, split as
+      // they load; one chain and then the other (fewer live registers)
+      float s[16], dp[16];
+      auto chain = [&](float (&acc)[16], int raw, int bhi, int blo) {
+        FragA a[DT];
+#pragma unroll
+        for (int kk = 0; kk < DT; ++kk)
+          a[kk] = load_a_sw<false>(sm + raw, NK, 16 * w, 8 * kk, lane);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DT; ++kk) {
+          const int bt = (kk / 4) * (C * kRow) + (kk % 4) * 32;
+          wgmma_rs_3xtf32<C>(acc, a[kk], desc(bhi + bt), desc(blo + bt), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait();
+      };
+      if (c == 0) mbar_wait(&bars[0], n & 1);  // this item's K
+      chain(s, L::off_k, L::off_q, L::off_q_lo);
+      if (c == 0) mbar_wait(&bars[2], n & 1);  // and V
+      chain(dp, L::off_v, L::off_g, L::off_g_lo);
+      fence_regs(s);
+      fence_regs(dp);
+
+      // 3. s <- P, dp <- P * dP * keep, and the keep bits; without branches
+      // (P is 0 outside the keys and queries), the keep hash only with
+      // dropout
+      uint32_t kept = 0;
+      auto probs = [&](auto with_dropout) {
+        constexpr bool DROP = decltype(with_dropout)::value;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) {
+            const int qi = q0 + 8 * i + 2 * tq4 + (c4 & 1), kj = key[c4 >> 1];
+            const bool in = kj < Lk && qi < Lq;
+            const float mv = Lm == 1 ? mk[c4 >> 1] : (in ? mb[(size_t)qi * Lk + kj] : 0.f);
+            // in log2 units, rounded as the forward kernel rounds it
+            const float sc = (s[4 * i + c4] * scale + mv) * kLog2e;
+            const float p = in ? exp2f(sc - l2[i][c4 & 1]) : 0.f;
+            bool keep = true;
+            if constexpr (DROP) keep = drop.keep(qi, kj, rate, keep_scale) != 0.f;
+            // (columns past Lq take no product: a tail leaves low parts
+            // unconverted there)
+            const float pdp = keep && in
+                ? p * (DROP ? dp[4 * i + c4] * keep_scale : dp[4 * i + c4]) : 0.f;
+            kept |= (uint32_t)keep << (4 * i + c4);
+            s[4 * i + c4] = p;
+            dp[4 * i + c4] = pdp;
+          }
+        }
+      };
+      if (dropout) probs(std::true_type{});
+      else probs(std::false_type{});
+
+      // 4. delta of each of the chunk's queries: each warp's sum over its
+      // keys (the lane's two rows, then the eight lanes of a column), then,
+      // after a barrier, the warps' parts in a fixed order (the mma.sync
+      // design's); the lanes trade them
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = dp[4 * i + e] + dp[4 * i + 2 + e];
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 8);
+          x += __shfl_xor_sync(0xffffffffu, x, 16);
+          if (gr == 0) sPart[w * C + 8 * i + 2 * tq4 + e] = x;
+        }
+      }
+      __syncthreads();  // every warp's part; every warp's S^T and dP^T done
+      // the next chunk's Q and G into the raw tiles, or the next item's first
+      // and its V, in flight while this chunk's products run
+      if (t == 0) {
+        if (c + 1 < nchunks) {
+          load_chunk(bh, c + 1);
+        } else if (next < BH) {
+          load_chunk(next, 0);
+          load_kv(next, 1);
+        }
+      }
+      float mine[2] = {0.f, 0.f};
+#pragma unroll
+      for (int ww = 0; ww < 4; ++ww) {
+        const float2 x = *reinterpret_cast<const float2*>(&sPart[ww * C + 8 * (gr & 3) + 2 * tq4]);
+        mine[0] += x.x;
+        mine[1] += x.y;
+      }
+
+      // 5. dS = P * (dP * keep - delta) and P * keep as the A operands of dK's
+      // and dV's k-steps (the accumulators as they lie), in TF32 hi + lo; dS
+      // into its tiles, rows of queries (in the low parts' place)
+      FragA pa[4], da[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float dl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dl[e] = __shfl_sync(0xffffffffu, mine[e], 4 * i + tq4);
+        float pv[4], ds[4];
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const float p = s[4 * i + c4];
+          ds[c4] = dp[4 * i + c4] - p * dl[c4 & 1];
+          const bool keep = (kept >> (4 * i + c4)) & 1u;
+          pv[c4] = keep ? (dropout ? p * keep_scale : p) : 0.f;
+        }
+        pa[i] = a_from_c_tf32(pv);
+        da[i] = a_from_c_tf32(ds);
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const int at = sw32(8 * i + 2 * tq4 + (c4 & 1), key[c4 >> 1], C);
+          const int e = 2 * (c4 & 1) + (c4 >> 1);  // a_from_c_tf32's place of element c4
+          *reinterpret_cast<uint32_t*>(sm + L::off_ds_hi + at) = da[i].hi[e];
+          *reinterpret_cast<uint32_t*>(sm + L::off_ds_lo + at) = da[i].lo[e];
+        }
+      }
+
+      // 6. dV += (P * keep)^T G and dK += dS^T Q over the k-steps that hold
+      // queries (the first always does): A from registers, B G^T's and Q^T's
+      // tiles; a chain's first product takes scale-d 0 at the start of each
+      // run of kTmaFlush chunks
+      const bool fresh = c % kTmaFlush == 0;
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (q0 + 8 * i < Lq) {
+          const int go = !(fresh && i == 0);
+          wgmma_rs_3xtf32<8 * DT>(dva, pa[i], desc(L::off_gt_hi + 32 * i),
+                                  desc(L::off_gt_lo + 32 * i), go);
+          wgmma_rs_3xtf32<8 * DT>(dka, da[i], desc(L::off_qt_hi + 32 * i),
+                                  desc(L::off_qt_lo + 32 * i), go);
+        }
+      }
+      wgmma_commit();
+      fence_async_shared();
+      __syncthreads();  // every warp's dS in its tiles
+      wgmma_wait();
+      fence_regs(dva);
+      fence_regs(dka);
+      // a run of kTmaFlush chunks' sums into dv and dk (the first run's
+      // stored, the later ones' added), then fresh sums (kFlush)
+      if ((c + 1) % kTmaFlush == 0 && c + 1 < nchunks) flush(c + 1 > kTmaFlush, false);
+
+      // 7. dQ^T = K^T dS^T for the chunk's queries over the keys: A K^T from
+      // registers (the K tile read across, split as it loads), B dS's tiles
+      // (both zero past Lk), the k-steps of 16-key groups that hold keys: a
+      // whole chain of each length, picked by Lk (a branch inside the chain
+      // around a register-A product made ptxas serialise every product of
+      // the kernel, C7512)
+      float dqa[C / 2];
+      auto dq_chain = [&](auto steps) {
+        constexpr int NKS = decltype(steps)::value;
+        fence_regs(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < NKS; ++ks) {
+          const FragA a = load_a_sw<true>(sm + L::off_k, NK, 16 * w, 8 * ks, lane);
+          const int bt = (ks / 4) * (C * kRow) + (ks % 4) * 32;
+          wgmma_rs_3xtf32<C>(dqa, a, desc(L::off_ds_hi + bt), desc(L::off_ds_lo + bt), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dqa);
+      };
+      if (Lk <= 16) dq_chain(std::integral_constant<int, 2>{});
+      else if (Lk <= 32) dq_chain(std::integral_constant<int, 4>{});
+      else if (Lk <= 48) dq_chain(std::integral_constant<int, 6>{});
+      else dq_chain(std::integral_constant<int, 8>{});
+      // dQ (times scale) of the thread's head columns and queries
+#pragma unroll
+      for (int i = 0; i < C / 8; ++i) {
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const int d = 16 * w + gr + 8 * (c4 >> 1);
+          const int qi = q0 + 8 * i + 2 * tq4 + (c4 & 1);
+          if (d < D && qi < Lq) dq[((size_t)bh * Lq + qi) * D + d] = dqa[4 * i + c4] * scale;
+        }
+      }
+      // every warp is done with this chunk's tiles
+      __syncthreads();
+    }
+
+    // the next item's K, once every warp's dQ^T has read this one's
+    if (t == 0 && next < BH) load_kv(next, 0);
+    // dK (times scale) and dV of the thread's keys, with the sums that wait
+    // in dk and dv past kTmaFlush chunks
+    flush(nchunks > kTmaFlush, true);
+  }
+}
+
+template <int NK, int DT>
+int launch_tf32_tma_dt(const void* q, const void* k, const void* v, const void* mask,
+                       const void* g, const void* lse, void* dq, void* dk, void* dv, int B, int H,
+                       int Lq, int Lk, int D, int Lm, float scale, float rate, float keep_scale,
+                       int seed, int hb, cudaStream_t stream) {
+  // TMA takes 16-byte aligned tensors
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g | (uintptr_t)dq |
+       (uintptr_t)dk | (uintptr_t)dv) %
+          16 !=
+      0)
+    return (int)cudaErrorMisalignedAddress;
+  const void* fn = (const void*)attention_bwd_wgmma_tf32_tma_kernel<NK, DT>;
+  cudaError_t err = raise_smem_limit(fn);
+  if (err != cudaSuccess) return (int)err;
+  using hopper::tensor_map_f32;
+  CUtensorMap tq, tk, tv, tg;
+  const int BH = B * H;
+  if ((err = tensor_map_f32(&tq, q, BH, Lq, D, kTmaChunk)) != cudaSuccess ||
+      (err = tensor_map_f32(&tk, k, BH, Lk, D, NK)) != cudaSuccess ||
+      (err = tensor_map_f32(&tv, v, BH, Lk, D, NK)) != cudaSuccess ||
+      (err = tensor_map_f32(&tg, g, BH, Lq, D, kTmaChunk)) != cudaSuccess)
+    return (int)err;
+  // persistent blocks, as many as the SMs hold, each over an equal share of
+  // the items
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 128, TmaLayout::bytes)) !=
+          cudaSuccess)
+    return (int)err;
+  const int cap = per_sm * sms > 0 ? per_sm * sms : 1;
+  const int per_block = (BH + cap - 1) / cap;
+  const int grid = (BH + per_block - 1) / per_block;
+  attention_bwd_wgmma_tf32_tma_kernel<NK, DT><<<grid, 128, TmaLayout::bytes, stream>>>(
+      tq, tk, tv, tg, static_cast<const float*>(mask), static_cast<const float*>(lse),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), BH, H, Lq, Lk,
+      D, Lm, scale, rate, keep_scale, (uint32_t)seed, hb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The design a launch takes: 0 the mma.sync instance over one key tile
@@ -1518,12 +2021,13 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* mask, c
 // summed in the dq_acc scratch), 2 the wgmma design (bf16 in either mode
 // with Lk <= kWgKeys and D a multiple of 8, which TMA's 16-byte row strides
 // need), 3 the TF32 wgmma design (fp32 where tf32_takes: every flagship
-// shape); -1 on bad input.
+// shape but vision's D 64), 4 the TF32 TMA design (fp32 where
+// tf32_tma_takes: vision's D 64); -1 on bad input.
 extern "C" int attention_bwd_design(int dtype, int round_p, int Lk, int D) {
   if (Lk < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) return -1;
   if (Lk > kMaxKeyTile) return 1;
   if (dtype == 1) return Lk <= kWgKeys && D % 8 == 0 ? 2 : 0;
-  return tf32_takes(Lk, D) ? 3 : 0;
+  return tf32_takes(Lk, D) ? 3 : tf32_tma_takes(Lk, D) ? 4 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q/g/o/dq
@@ -1555,6 +2059,9 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
   if (design == 3)
     return launch_tf32(q, k, v, mask, g, lse, dq, dk, dv, B, H, Lq, Lk, D, Lm, scale, rate,
                        keep_scale, seed, hb, s);
+  if (design == 4)
+    return launch_tf32_tma_dt<kWgRows, 8>(q, k, v, mask, g, lse, dq, dk, dv, B, H, Lq, Lk, D,
+                                          Lm, scale, rate, keep_scale, seed, hb, s);
   if (dtype == 0)
     return launch<float, false>(q, k, v, mask, g, o, lse, dq, dk, dv, dq_acc, B, H, Lq,
                                 Lk, D, Lm, scale, rate, keep_scale, keep_rcp, seed, hb,
@@ -1662,4 +2169,24 @@ extern "C" int attention_bwd_tf32_blocks_per_sm(int Lq, int Lk, int D) {
                                                         TfLayout<I::NK, I::DT>::bytes);
     return err == cudaSuccess ? blocks : -(int)err;
   });
+}
+
+// Bytes of dynamic shared memory one block of the TF32 TMA design takes at
+// (Lq, Lk, D) (0 where the design takes no such launch).
+extern "C" int attention_bwd_tf32_tma_smem(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_bwd_design(0, 0, Lk, D) != 4) return 0;
+  return (int)TmaLayout::bytes;
+}
+
+// Blocks of the TF32 TMA design at (Lq, Lk, D) that one SM holds at once,
+// as the CUDA occupancy calculator gives them from the kernel's registers,
+// threads and shared memory; a negative CUDA error code on failure.
+extern "C" int attention_bwd_tf32_tma_blocks_per_sm(int Lq, int Lk, int D) {
+  if (Lq < 1 || attention_bwd_design(0, 0, Lk, D) != 4) return -(int)cudaErrorInvalidValue;
+  const void* fn = (const void*)attention_bwd_wgmma_tf32_tma_kernel<kWgRows, 8>;
+  cudaError_t err = raise_smem_limit(fn);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 128, TmaLayout::bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }

@@ -17,7 +17,9 @@
 // takes only some of an MN-major operand's columns starts that many
 // bytes along the row (a multiple of 16): the swizzle is a function of
 // the address, so the columns stay where TMA put them. A K-major tile of
-// 64-byte rows (desc_b64) swizzles within 8-row atoms of 512 bytes.
+// 64-byte rows (desc_b64) swizzles within 8-row atoms of 512 bytes. An
+// fp32 tile that TMA writes (tensor_map_f32) has the same bytes: 32-column
+// (128-byte) rows in 32-column slabs, as TF32 wgmma reads it K-major.
 #pragma once
 
 #include <cuda.h>
@@ -671,6 +673,25 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* p, int BH, int L, in
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor map of a contiguous fp32 [BH, L, D] tensor at p (D a multiple
+// of 4): boxes of 32 columns (128 bytes) by `rows` rows of one (batch,
+// head), 128-byte swizzled, the K-major layout TF32 wgmma reads; a load
+// fills what lies outside the tensor with zeros
+inline cudaError_t tensor_map_f32(CUtensorMap* map, const void* p, int BH, int L, int D,
+                                  int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)L * D * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(p),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -72,15 +72,21 @@ the register A operands, K and V^T split into TF32 hi and lo tiles; past
 128 keys in ``ROUND_PROBS`` mode two ``mma.sync`` passes over the key
 tiles, the first for the rows' max and sum, so that it rounds the
 normalized P as JAX does; the rest an ``mma.sync`` online softmax. K2 has
-four (:func:`bwd_design`): with
+five (:func:`bwd_design`): with
 bf16 inputs in either mode, up to 128 keys and D a multiple of 8 (every
 bf16 train step at the flagship shapes) a warpgroup a 64-key slab on
 ``wgmma`` and TMA copies, P and dS through shared memory for dv, dk and
 dq; with fp32 inputs, up to 128 keys, D a multiple of 4 and at most 48
 (every flagship shape but the vision self-attention's D 64) the same layout
 on TF32 ``wgmma`` in 3xTF32, P and dS the register A operands of dv and dk
-and dS through shared memory for dq; else ``mma.sync``, over key tiles past
-128 keys. A
+and dS through shared memory for dq; with fp32 inputs, up to 64 keys and
+48 < D <= 64 a multiple of 4 (the vision self-attention) that layout in
+persistent blocks of one warpgroup, two an SM, each over (batch, head)
+items whose K, V, Q and G TMA copies while the last item's products run,
+the raw Q and G tiles (and Q^T and G^T written from them) read as the
+truncated high parts of their B operands, dq's K^T split in registers;
+else ``mma.sync``, over key tiles past 128 keys (fp32 at D 64 with 65 to
+128 keys among them). A
 wgmma design takes 16-byte aligned tensors: a misaligned one raises (CUDA
 error 716) at its launch, which is not counted.
 """
@@ -402,7 +408,7 @@ def fwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:
 # K2's designs, by the code csrc/attention_bwd.cu's attention_bwd_design
 # gives them
 BWD_DESIGNS = {0: "mma.sync", 1: "mma.sync key tiles", 2: "wgmma",
-               3: "wgmma tf32"}
+               3: "wgmma tf32", 4: "wgmma tf32 tma"}
 
 
 def bwd_design(dtype: torch.dtype, mode: str, Lk: int, D: int) -> str:

@@ -219,45 +219,77 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
         torch.int32).view(torch.float32)
 
 
-def tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3):
-    """a @ b in fp32 from TF32 operands, as K2's TF32 design takes its
-    products: with 3 terms hi_a hi_b + hi_a lo_b + lo_a hi_b (3xTF32, lo the
-    TF32 rounding of what hi left over, lo_a lo_b left out); with 1 the
-    product of the high parts alone."""
-    ah, bh = tf32_round(a), tf32_round(b)
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 product reads of an fp32 ``x`` as it lies in shared
+    memory: its top 19 bits, the 13 low mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor, raw: bool = False):
+    """(hi, lo) of ``x`` as K2's TF32 designs split an operand: hi the TF32
+    rounding of x, or with ``raw`` its truncation (the fp32 tile read as it
+    is, which the TF32 TMA design does for the raw Q and G that TMA copies),
+    and lo the TF32 rounding of what hi left over."""
+    hi = tf32_truncate(x) if raw else tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3,
+                raw: str = ""):
+    """a @ b in fp32 from TF32 operands, as K2's TF32 designs take their
+    products: with 3 terms hi_a hi_b + hi_a lo_b + lo_a hi_b (3xTF32, lo_a
+    lo_b left out); with 1 the product of the high parts alone. ``raw``
+    names the operands ("a", "b") whose high part is their truncation
+    (tf32_split)."""
+    ah, al = tf32_split(a, "a" in raw)
+    bh, bl = tf32_split(b, "b" in raw)
     out = ah @ bh
     if terms == 3:
-        out = out + ah @ tf32_round(b - bh) + tf32_round(a - ah) @ bh
+        out = out + ah @ bl + al @ bh
     return out
 
 
-def tf32_backward(q, k, v, mask, g, rate, seed, terms=3):
+def tf32_backward(q, k, v, mask, g, rate, seed, terms=3, raw=False):
     """attention_bwd_reference's fp32 formulas with each of K2's five
-    products (q k^T, g v^T, dv, dq, dk) through tf32_matmul."""
+    products (q k^T, g v^T, dv, dq, dk) through tf32_matmul; with ``raw`` q
+    and g enter every product as raw tiles (the TF32 TMA design: the B
+    operands of S^T = K Q^T and dP^T = V G^T as TMA copies them, and of dK
+    and dV, Q^T and G^T, the raw values transposed)."""
     scale = port._scale(q.shape[-1])
-    s = tf32_matmul(q, k.transpose(-1, -2), terms) * scale + mask
+    a, b = ("a", "b") if raw else ("", "")
+    s = tf32_matmul(q, k.transpose(-1, -2), terms, a) * scale + mask
     probs = port._softmax(s)[0]
-    dpd = tf32_matmul(g, v.transpose(-1, -2), terms)
+    dpd = tf32_matmul(g, v.transpose(-1, -2), terms, a)
     keep = port.keep_mask(tuple(probs.shape), seed, rate, probs.device)
     pd, dp = probs * keep, dpd * keep
     ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
     return (tf32_matmul(ds, k, terms) * scale,
-            tf32_matmul(ds.transpose(-1, -2), q, terms) * scale,
-            tf32_matmul(pd.transpose(-1, -2), g, terms))
+            tf32_matmul(ds.transpose(-1, -2), q, terms, b) * scale,
+            tf32_matmul(pd.transpose(-1, -2), g, terms, b))
 
 
-def test_tf32_split_keeps_the_backward_fp32_accurate():
-    """The 3xTF32 split of K2's fp32 design (csrc/attention_bwd.cu), its
-    five products emulated here with TF32 rounding by bit operations,
-    against attention_bwd_reference (held against JAX above) at a small
-    shape with dropout: within 1e-5 of max(1, |grad|), as chip_smoke.py
-    holds the kernel on the card. One TF32 product alone (the control)
-    misses that by far."""
+# (Lq, Lk, D, raw): a shape of the TF32 design's widths with its operands
+# all rounded, and the vision self-attention (D 64) as the TF32 TMA design
+# takes it, q and g read as raw tiles
+TF32_SPLITS = {"tf32": (37, 41, 48, False), "tf32_tma_vision": (44, 44, 64, True)}
+
+
+@pytest.mark.parametrize("case", TF32_SPLITS)
+def test_tf32_split_keeps_the_backward_fp32_accurate(case):
+    """The 3xTF32 split of K2's fp32 designs (csrc/attention_bwd.cu), its
+    five products emulated here with TF32 rounding and truncation by bit
+    operations, against attention_bwd_reference (held against JAX above)
+    with dropout: within 1e-5 of max(1, |grad|), as chip_smoke.py holds the
+    kernel on the card. One TF32 product alone (the control) misses that by
+    far."""
+    Lq, Lk, D, raw = TF32_SPLITS[case]
     q, k, v, mask, cot = (torch.from_numpy(x) for x in make_case(
-        7, B=2, H=4, Lq=37, Lk=41, D=48, full_mask=True))
+        7, B=2, H=4, Lq=Lq, Lk=Lk, D=D, full_mask=True))
     want = port.attention_bwd_reference(q, k, v, mask, cot, 0.1, 5)
     top = max(1.0, max(w.abs().max().item() for w in want))
     for terms, within in ((3, True), (1, False)):
-        got = tf32_backward(q, k, v, mask, cot, 0.1, 5, terms)
+        got = tf32_backward(q, k, v, mask, cot, 0.1, 5, terms, raw)
         err = max((a - w).abs().max().item() for a, w in zip(got, want))
         assert (err <= 1e-5 * top) == within, (terms, err, top)

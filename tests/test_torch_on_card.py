@@ -412,16 +412,17 @@ def test_wgmma_backward_matches_plain_on_card(card, Lq, Lk, D):
 def test_wgmma_backward_takes_the_flagship_bf16_launches_on_card(card):
     """The backward launches at the flagship shapes take the wgmma design
     in bf16, in each mode it takes, and the TF32 wgmma design in fp32 but
-    at the vision shape (D 64, which it does not take); more than 128 keys
-    the mma.sync design over key tiles, and the shapes the wgmma designs do
-    not take (bf16 at a D that is not a multiple of 8, fp32 at one that is
-    not a multiple of 4 or above 48) the mma.sync design."""
+    at the vision shape (D 64), which takes the TF32 TMA design; more than
+    128 keys the mma.sync design over key tiles, and the shapes the wgmma
+    designs do not take (bf16 at a D that is not a multiple of 8, fp32 at
+    one that is not a multiple of 4, above 64, or above 48 with more than
+    64 keys) the mma.sync design."""
     for Lk, D in ((124, 48), (44, 64), (44, 32), (124, 32)):
         for mode in attention.MODES:
             assert attention.bwd_design(torch.bfloat16, mode, Lk, D) == (
                 "wgmma" if mode in WG_BWD_MODES else "mma.sync")
             assert attention.bwd_design(torch.float32, mode, Lk, D) == (
-                "mma.sync" if D == 64 else "wgmma tf32")
+                "wgmma tf32 tma" if D == 64 else "wgmma tf32")
     for dtype in (torch.float32, torch.bfloat16):
         assert attention.bwd_design(dtype, attention.ROUND_PROBS, 300, 64) \
             == "mma.sync key tiles"
@@ -438,13 +439,17 @@ def test_wgmma_backward_takes_the_flagship_bf16_launches_on_card(card):
 # most 48: tf32_takes in csrc/attention_bwd.cu) at its edges: query rows
 # around its 32-query chunks, keys around its one- and two-warpgroup
 # instances (129 takes the mma.sync design over key tiles), the head widths
-# of each instance and beyond it (D 64 and 128 take the mma.sync design);
+# of each instance and beyond it (D 64 takes the TF32 TMA design up to 64
+# keys and the mma.sync design past them, D 128 the mma.sync design);
 # key-only and full masks, dropout 0 and 0.1. Each gradient within 1e-5 of max(1, |grad|), as chip_smoke.py
 # holds K2 in fp32. One key is held apart (the next test).
 def tf32_design(Lk, D):
     if Lk > 128:
         return "mma.sync key tiles"
-    return "wgmma tf32" if D % 4 == 0 and D <= 48 else "mma.sync"
+    if D % 4 == 0 and D <= 48:
+        return "wgmma tf32"
+    return "wgmma tf32 tma" if D % 4 == 0 and D <= 64 and Lk <= 64 \
+        else "mma.sync"
 
 
 @pytest.mark.parametrize("D", [16, 32, 44, 48, 64, 128])
@@ -474,8 +479,9 @@ def test_wgmma_tf32_backward_matches_plain_on_card(card, Lq, Lk, D):
 # of P: dq and dk are P dP (1 - P), and dv = P^T g carries it too. Held:
 # each gradient within 1e-2 of max(1, |grad|) (read: 1.6e-3 of it in dq
 # and dk, 4.8e-3 absolute in dv of up to 24), at a width of the TF32 design
-# (48) and of the mma.sync one (128), every row's key masked.
-@pytest.mark.parametrize("D", [48, 128])
+# (48), of the TF32 TMA design (64) and of the mma.sync one (128), every
+# row's key masked.
+@pytest.mark.parametrize("D", [48, 64, 128])
 def test_fp32_backward_over_one_masked_key_on_card(card, D):
     B, H, Lq = 4, 8, 33
     assert attention.bwd_design(torch.float32, attention.ROUND_PROBS, 1,
@@ -493,13 +499,53 @@ def test_fp32_backward_over_one_masked_key_on_card(card, D):
         torch.testing.assert_close(a, w, atol=1e-2 * top, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bfloat16", "float32"])
-def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card, dtype):
+# K2's TF32 TMA design (fp32, at most 64 keys, 48 < D <= 64: tf32_tma_takes
+# in csrc/attention_bwd.cu) at its edges: one query and one key, query rows
+# around its 32-query chunks, keys around its one warpgroup, Lq != Lk, key-
+# only and full masks that always mask the first key (a fully masked key)
+# and never the last (no row masked whole: the test above holds that one),
+# dropout 0 and 0.1. Each gradient within 1e-5 of max(1, |grad|), as
+# chip_smoke.py holds K2 in fp32.
+@pytest.mark.parametrize("D", [52, 64])
+@pytest.mark.parametrize("Lk", [1, 17, 44, 64])
+@pytest.mark.parametrize("Lq", [1, 17, 44, 64])
+def test_wgmma_tf32_tma_backward_matches_plain_on_card(card, Lq, Lk, D):
+    B, H = 4, 8
+    for mode in attention.MODES:
+        assert attention.bwd_design(torch.float32, mode, Lk, D) \
+            == "wgmma tf32 tma"
+    for full in (False, True):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = make_qkv(Lq + Lk + D, B, H, Lq, Lk, D,
+                                     Lq if full else 1, torch.float32, card)
+            mask[..., -1] = 0.0
+            if Lk > 1:
+                mask[..., 0] = -10000.0
+            g = torch.randn(q.shape, device=card,
+                            generator=torch.Generator(card).manual_seed(D))
+            leaves = [x.requires_grad_() for x in (q, k, v)]
+            out = attention.fused_attention(*leaves, mask, rate, 21)
+            before = attention.bwd_launch_count()
+            got = torch.autograd.grad(out, leaves, g)
+            assert attention.bwd_launch_count() == before + 1
+            want = attention.attention_bwd_reference(q, k, v, mask, g, rate,
+                                                     21)
+            for a, w in zip(got, want):
+                tol = TOL[torch.float32] * max(1.0, w.abs().max().item())
+                torch.testing.assert_close(a, w, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype, L, D",
+                         [(torch.bfloat16, 124, 48), (torch.float32, 124, 48),
+                          (torch.float32, 44, 64)],
+                         ids=["bfloat16", "float32", "float32-d64"])
+def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card, dtype,
+                                                               L, D):
     """The wgmma designs read 16-byte aligned tensors: a contiguous
     cotangent one element (2 or 4 bytes) into its storage raises at K2's
-    launch, which is not counted, rather than taking another design."""
-    q, k, v, mask = make_qkv(2, 2, 4, 124, 124, 48, 1, dtype, card)
+    launch, which is not counted, rather than taking another design (the
+    TF32 TMA design at D 64)."""
+    q, k, v, mask = make_qkv(2, 2, 4, L, L, D, 1, dtype, card)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = attention.fused_attention(q, k, v, mask)
     flat = torch.empty(out.numel() + 1, dtype=out.dtype, device=card)
@@ -511,21 +557,23 @@ def test_wgmma_backward_refuses_a_misaligned_cotangent_on_card(card, dtype):
     assert attention.bwd_launch_count() == before
 
 
-@pytest.mark.parametrize("dtype, mode",
-                         [(torch.bfloat16, m) for m in WG_BWD_MODES]
-                         + [(torch.float32, attention.ROUND_PROBS)],
+@pytest.mark.parametrize("dtype, mode, L, D",
+                         [(torch.bfloat16, m, 124, 48) for m in WG_BWD_MODES]
+                         + [(torch.float32, attention.ROUND_PROBS, 124, 48),
+                            (torch.float32, attention.ROUND_PROBS, 44, 64)],
                          ids=[f"bfloat16-{m}" for m in WG_BWD_MODES]
-                         + ["float32"])
-def test_wgmma_backward_is_deterministic_on_card(card, dtype, mode):
+                         + ["float32", "float32-d64"])
+def test_wgmma_backward_is_deterministic_on_card(card, dtype, mode, L, D):
     """Two launches on the same inputs give the same bits: one block owns a
     (batch, head), with no atomics and every sum in a fixed order (bf16 on
-    the wgmma design, fp32 on the TF32 one)."""
-    q, k, v, mask = make_qkv(6, 6, 16, 124, 124, 48, 1, dtype, card)
+    the wgmma design, fp32 on the TF32 one and, at D 64, the TF32 TMA
+    one)."""
+    q, k, v, mask = make_qkv(6, 6, 16, L, L, D, 1, dtype, card)
     g = torch.randn(q.shape, device=card,
                     generator=torch.Generator(card).manual_seed(6)
                     ).to(dtype)
     out, lse = attention.attention_forward(q, k, v, mask, 0.1, 8, mode=mode)
-    mask4 = mask.expand(6, 1, 1, 124).contiguous()
+    mask4 = mask.expand(6, 1, 1, L).contiguous()
     first, second = (attention._launch_bwd(q, k, v, mask4, g, out, lse, 0.1,
                                            8, mode) for _ in range(2))
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
