@@ -1,0 +1,10 @@
+"""The card's time for one ``AdamW.step()`` of the program's optimizer on
+the last step's gradients, called alone after the window."""
+
+from perfbench import common
+
+
+def read(state):
+    prog = state["program"]
+    return 1e3 * common.device_seconds(prog.optimizer.step,
+                                       state["ctx"].device, calls=3)
