@@ -209,7 +209,8 @@ def read_command_line(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                              'cli.serve: serve over the first N cards')
     parser.add_argument('-profile', action='store_true',
                         help='cli.train: torch.profiler trace of steps 10-15 '
-                             'under <save_path>/profile')
+                             '(the card\'s activity) with the program\'s '
+                             'spans, under <save_path>/profile')
     parser.add_argument('-fs_steps', type=int, default=2000,
                         help='fast-scorer head training steps')
     parser.add_argument('-fs_lr', type=float, default=1e-3,

@@ -36,6 +36,7 @@ from crct_tpu_torch.models.layers import DropoutRNG, init_weights
 from crct_tpu_torch.models.regressor import CERegressor, HybridRegressor
 from crct_tpu_torch.models.vilbert import (PreTrainingHeads,
                                            TwoStreamEncoderModel)
+from crct_tpu_torch.utils import tracing
 from crct_tpu_torch.utils.device import resolve_device
 
 
@@ -127,13 +128,14 @@ class CRCTModel(nn.Module):
         cand_logits = None
         with self.autocast(tokens.device.type):
             t_seq, v_seq, t_pooled, v_pooled = self.encode(batch, rng)
-            nsp_logits = self.cls(t_pooled, v_pooled, rng)
-            if self.has_fast_scorer and "cand_tokens" in batch:
-                # the NSP head's fusion (sum or product), before its
-                # dropout: the fast scorer's question state
-                cand_logits = self.fast_scorer(
-                    self.cls.fuse(t_pooled, v_pooled),
-                    batch["cand_tokens"], batch["cand_valid"])
+            with tracing.span("fwd.heads"):
+                nsp_logits = self.cls(t_pooled, v_pooled, rng)
+                if self.has_fast_scorer and "cand_tokens" in batch:
+                    # the NSP head's fusion (sum or product), before its
+                    # dropout: the fast scorer's question state
+                    cand_logits = self.fast_scorer(
+                        self.cls.fuse(t_pooled, v_pooled),
+                        batch["cand_tokens"], batch["cand_valid"])
         with torch.autocast(tokens.device.type, enabled=False):
             out = self._heads(batch, t_seq[:, 0].float(),
                               v_seq[:, 0].float(), nsp_logits.float())
@@ -170,32 +172,35 @@ class CRCTModel(nn.Module):
         masked outputs and, in training, the losses; all in fp32."""
         B = hw_0.shape[0]
         # ---- regression (always computed; masked by needs_reg) ----------
-        R = batch["R"].float()                        # [B, 4]
-        needs_reg = R[:, 1] > 0
-        zeros = torch.zeros(B, device=R.device)
-        out = dict(reg_output=zeros, reg_loss=zeros, reg_l1=zeros,
-                   reg_5_dist=zeros,
-                   correct_regs=torch.zeros(B, dtype=torch.bool,
-                                            device=R.device))
-        out["correct_t_regs"] = out["correct_regs"]
-        if self.has_regressor:
-            floats = torch.tensor(DVQA_FLOATS, dtype=torch.float32,
-                                  device=R.device)
-            if self.ce_reg:
-                out.update(self._ce_outputs(self.regressor(hv_0, hw_0), R,
-                                            needs_reg, floats))
-            else:
-                out.update(self._reg_outputs(
-                    self.regressor(hv_0, hw_0).float(), R, needs_reg,
-                    floats))
+        with tracing.span("fwd.heads"):
+            R = batch["R"].float()                        # [B, 4]
+            needs_reg = R[:, 1] > 0
+            zeros = torch.zeros(B, device=R.device)
+            out = dict(reg_output=zeros, reg_loss=zeros, reg_l1=zeros,
+                       reg_5_dist=zeros,
+                       correct_regs=torch.zeros(B, dtype=torch.bool,
+                                                device=R.device))
+            out["correct_t_regs"] = out["correct_regs"]
+            if self.has_regressor:
+                floats = torch.tensor(DVQA_FLOATS, dtype=torch.float32,
+                                      device=R.device)
+                if self.ce_reg:
+                    out.update(self._ce_outputs(self.regressor(hv_0, hw_0),
+                                                R, needs_reg, floats))
+                else:
+                    out.update(self._reg_outputs(
+                        self.regressor(hv_0, hw_0).float(), R, needs_reg,
+                        floats))
         if self.training and "next_sentence_labels" in batch:
-            labels = batch["next_sentence_labels"].reshape(B).long()
-            logp = torch.log_softmax(nsp_logits, dim=-1)
-            out["nsp_loss"] = -logp.gather(1, labels[:, None]).mean()
-            # combined loss: nsp + mean-over-batch reg loss, zeros of
-            # non-regression rows included (encoder_decorator.py:147-153)
-            out["loss"] = (self.nsp_loss_coeff * out["nsp_loss"]
-                           + self.reg_loss_coeff * out["reg_loss"].mean())
+            with tracing.span("fwd.loss"):
+                labels = batch["next_sentence_labels"].reshape(B).long()
+                logp = torch.log_softmax(nsp_logits, dim=-1)
+                out["nsp_loss"] = -logp.gather(1, labels[:, None]).mean()
+                # combined loss: nsp + mean-over-batch reg loss, zeros of
+                # non-regression rows included (encoder_decorator.py:147-153)
+                out["loss"] = (self.nsp_loss_coeff * out["nsp_loss"]
+                               + self.reg_loss_coeff
+                               * out["reg_loss"].mean())
         return CRCTOutputs(nsp_logits=nsp_logits, needs_reg=needs_reg, **out)
 
     @staticmethod

@@ -23,6 +23,7 @@ from crct_tpu_torch.config import CRCTModelConfig
 from crct_tpu_torch.models.layers import (ConnectionLayer, TransformerLayer,
                                           dropout, extended_attention_mask)
 from crct_tpu_torch.ops.attention import PALLAS, ROUND_PROBS
+from crct_tpu_torch.utils import tracing
 
 
 class TextEmbeddings(nn.Module):
@@ -146,25 +147,29 @@ class TwoStreamEncoder(nn.Module):
             for _ in range(len(cfg.v_biattention_id)
                            if cfg.with_coattention else 0))
 
-    def _block(self, layer: nn.Module, *args, rng=None):
-        """``layer(*args, rng)``; with ``remat`` while gradients are on, in
-        a ``torch.utils.checkpoint`` (JAX ``nn.remat``): the backward runs
-        the block again, the attention kernel's log-sum-exp included, with
-        the dropout draws of the first run replayed from a snapshot of the
-        ``DropoutRNG`` (checkpoint's own RNG preservation covers only
-        torch's default generators)."""
-        if not (self.config.remat and torch.is_grad_enabled()):
-            return layer(*args, rng)
-        state = rng.snapshot() if rng is not None else None
-        runs = []
+    def _block(self, name: str, layers: nn.ModuleList, index: int, *args,
+               rng=None):
+        """``layers[index](*args, rng)`` in the span ``name``; with
+        ``remat`` while gradients are on, in a ``torch.utils.checkpoint``
+        (JAX ``nn.remat``): the backward runs the block again, the attention
+        kernel's log-sum-exp included, with the dropout draws of the first
+        run replayed from a snapshot of the ``DropoutRNG`` (checkpoint's own
+        RNG preservation covers only torch's default generators). The
+        backward's rerun records no span."""
+        layer = layers[index]
+        with tracing.span(name, layer=index):
+            if not (self.config.remat and torch.is_grad_enabled()):
+                return layer(*args, rng)
+            state = rng.snapshot() if rng is not None else None
+            runs = []
 
-        def run(*xs):
-            replay = rng if rng is None or not runs else rng.replay(state)
-            runs.append(True)
-            return layer(*xs, replay)
+            def run(*xs):
+                replay = rng if rng is None or not runs else rng.replay(state)
+                runs.append(True)
+                return layer(*xs, replay)
 
-        return checkpoint(run, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+            return checkpoint(run, *args, use_reentrant=False,
+                              preserve_rng_state=False)
 
     def forward(self, t_emb, v_emb, t_mask, v_mask, rng=None):
         cfg = self.config
@@ -173,12 +178,14 @@ class TwoStreamEncoder(nn.Module):
         for count, (v_end, t_end) in enumerate(
                 zip(cfg.v_biattention_id, cfg.t_biattention_id)):
             for idx in range(v_start, v_end):
-                v_emb = self._block(self.v_layer[idx], v_emb, v_mask, rng=rng)
+                v_emb = self._block("fwd.vision_layer", self.v_layer, idx,
+                                    v_emb, v_mask, rng=rng)
                 if idx < cfg.fixed_v_layer:
                     # frozen prefix (reference no_grad, vilbert.py:860-866)
                     v_emb = v_emb.detach()
             for idx in range(t_start, t_end):
-                t_emb = self._block(self.layer[idx], t_emb, t_mask, rng=rng)
+                t_emb = self._block("fwd.text_layer", self.layer, idx,
+                                    t_emb, t_mask, rng=rng)
                 if idx < cfg.fixed_t_layer:
                     t_emb = t_emb.detach()
             if count == 0 and cfg.in_batch_pairs:
@@ -194,13 +201,16 @@ class TwoStreamEncoder(nn.Module):
                 t_emb = t_emb.expand((v_emb.shape[0],) + t_emb.shape[1:])
                 t_mask = t_mask.expand((v_emb.shape[0],) + t_mask.shape[1:])
             if cfg.with_coattention:
-                v_emb, t_emb = self._block(self.c_layer[count], v_emb, v_mask,
-                                           t_emb, t_mask, rng=rng)
+                v_emb, t_emb = self._block("fwd.coattn", self.c_layer, count,
+                                           v_emb, v_mask, t_emb, t_mask,
+                                           rng=rng)
             v_start, t_start = v_end, t_end
         for idx in range(v_start, cfg.v_num_hidden_layers):
-            v_emb = self._block(self.v_layer[idx], v_emb, v_mask, rng=rng)
+            v_emb = self._block("fwd.vision_layer", self.v_layer, idx,
+                                v_emb, v_mask, rng=rng)
         for idx in range(t_start, cfg.num_hidden_layers):
-            t_emb = self._block(self.layer[idx], t_emb, t_mask, rng=rng)
+            t_emb = self._block("fwd.text_layer", self.layer, idx,
+                                t_emb, t_mask, rng=rng)
         return t_emb, v_emb
 
 
@@ -234,13 +244,15 @@ class TwoStreamEncoderModel(nn.Module):
                 image_feat, image_loc, image_class, image_mask, areas=None,
                 rng=None):
         dtype = self.t_pooler.dense.weight.dtype
-        t_mask = extended_attention_mask(attention_mask, dtype)
-        v_mask = extended_attention_mask(image_mask, dtype)
-        t_emb = self.embeddings(input_ids, token_type_ids, txt_loc, rng)
-        v_emb = self.v_embeddings(image_feat, image_loc, image_class, areas,
-                                  rng)
+        with tracing.span("fwd.embed"):
+            t_mask = extended_attention_mask(attention_mask, dtype)
+            v_mask = extended_attention_mask(image_mask, dtype)
+            t_emb = self.embeddings(input_ids, token_type_ids, txt_loc, rng)
+            v_emb = self.v_embeddings(image_feat, image_loc, image_class,
+                                      areas, rng)
         t_seq, v_seq = self.encoder(t_emb, v_emb, t_mask, v_mask, rng)
-        return t_seq, v_seq, self.t_pooler(t_seq), self.v_pooler(v_seq)
+        with tracing.span("fwd.heads"):
+            return t_seq, v_seq, self.t_pooler(t_seq), self.v_pooler(v_seq)
 
 
 class PreTrainingHeads(nn.Module):

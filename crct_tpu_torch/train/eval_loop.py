@@ -39,6 +39,7 @@ import torch
 
 from crct_tpu_torch import parallel
 from crct_tpu_torch.models.crct import CRCTModel
+from crct_tpu_torch.utils import tracing
 
 # question-category membership by qid prefix lists (evaluation.py:434-445)
 STRUCTURAL_QID = ['S7', 'S17', 'S6', 'S1', 'S4', 'S3', 'S5', 'S2', 'S0', 'S8',
@@ -538,60 +539,75 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
     inf_time = [0.0, 0]
     _qb_pad = [0]   # the question axis padded to the largest batch so far
 
-    def put_vis(batch):
+    def put_vis(batch, trace):
         """Per-question visual arrays -> the card, padded to a stable B."""
-        nq = np.asarray(batch["tokens"]).shape[0]
-        _qb_pad[0] = max(_qb_pad[0], nq)
-        vis = {}
-        for k in EVAL_VIS_KEYS:
-            if k not in batch:
-                continue
-            v = np.asarray(batch[k])[:, 0]
-            if _qb_pad[0] > nq:
-                v = np.concatenate(
-                    [v, np.zeros((_qb_pad[0] - nq,) + v.shape[1:], v.dtype)])
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if k == "image_feat" and bf16_transfer:
-                t = t.to(torch.bfloat16)
-            vis[k] = t.to(device, non_blocking=True)
-        return vis
+        with tracing.span("eval.put_vis", trace=trace):
+            nq = np.asarray(batch["tokens"]).shape[0]
+            _qb_pad[0] = max(_qb_pad[0], nq)
+            vis = {}
+            for k in EVAL_VIS_KEYS:
+                if k not in batch:
+                    continue
+                v = np.asarray(batch[k])[:, 0]
+                if _qb_pad[0] > nq:
+                    v = np.concatenate([v, np.zeros(
+                        (_qb_pad[0] - nq,) + v.shape[1:], v.dtype)])
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if k == "image_feat" and bf16_transfer:
+                    t = t.to(torch.bfloat16)
+                vis[k] = t.to(device, non_blocking=True)
+            return vis
 
-    def dispatch_chunks(rows, step=None, chunk_size=None, vis=None,
+    def dispatch_chunks(rows, trace, step=None, chunk_size=None, vis=None,
                         qidx=None):
         """Transfer + launch every chunk; the outputs stay on the card (see
         collect_chunks), so the host packs chunk k+1 while the card runs
         chunk k and, in the pipelines, a later stage's launches queue behind
         these before any output comes back."""
         step = step or eval_step
+        size = chunk_size or chunk
         t0 = time.time()
         if qidx is not None:
             rows = dict(rows, _qidx=np.asarray(qidx, np.int64))
+        # drawn inside the pack span, so that the slicing and padding of
+        # _chunk_rows count there
+        pieces = _chunk_rows(rows, size)
         pending = []
-        for piece, valid in _chunk_rows(rows, chunk_size or chunk):
-            q = piece.pop("_qidx", None)
-            piece = cast_feat(piece)
-            outs = (step(piece, vis, q) if q is not None else step(piece))
+        for _ in range(-(-len(next(iter(rows.values()))) // size)):
+            with tracing.span("eval.pack", trace=trace):
+                piece, valid = next(pieces)
+                q = piece.pop("_qidx", None)
+                piece = cast_feat(piece)
+            tracing.count("eval.rows_valid", valid)
+            tracing.count("eval.rows_launched", size)
+            with tracing.span("eval.put", trace=trace):
+                piece = to_device(piece, device)
+            with tracing.span("eval.dispatch", trace=trace):
+                outs = (step(piece, vis, q) if q is not None else step(piece))
             pending.append((outs, valid))
         inf_time[0] += time.time() - t0
         return pending
 
-    def collect_chunks(pending):
+    def collect_chunks(pending, trace):
+        """The outputs of every chunk on the host."""
         t0 = time.time()
         collected = None
-        for outs, valid in pending:
-            outs = [o[:valid].float().cpu().numpy() for o in outs]
-            if collected is None:
-                collected = [[] for _ in outs]
-            for acc, o in zip(collected, outs):
-                acc.append(o)
+        with tracing.span("eval.fetch", trace=trace):
+            for outs, valid in pending:
+                outs = [o[:valid].float().cpu().numpy() for o in outs]
+                if collected is None:
+                    collected = [[] for _ in outs]
+                for acc, o in zip(collected, outs):
+                    acc.append(o)
         inf_time[0] += time.time() - t0
         return [np.concatenate(a) for a in collected]
 
-    def run_chunks(rows, step=None, chunk_size=None, vis=None, qidx=None):
-        return collect_chunks(dispatch_chunks(rows, step, chunk_size, vis,
-                                              qidx))
+    def run_chunks(rows, trace, step=None, chunk_size=None, vis=None,
+                   qidx=None):
+        return collect_chunks(dispatch_chunks(rows, trace, step, chunk_size,
+                                              vis, qidx), trace)
 
-    def _topk_stage2(batch, ids, gt_id, frows):
+    def _topk_stage2(bi, batch, ids, gt_id, frows):
         """Fast logits on the host -> shortlist -> launch the rescore
         (returns the in-flight state; outputs collected in _topk_finish)."""
         cand_valid = frows["cand_valid"] > 0                # [B, P]
@@ -609,16 +625,16 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
             pend = dispatch_chunks(
                 shortlist_rescore_rows(batch, top_idx,
                                        keys=EVAL_TEXT_KEYS),
-                rank_step, vis=frows["_vis"],
+                bi, rank_step, vis=frows["_vis"],
                 qidx=np.repeat(np.arange(B, dtype=np.int64), K))
         else:
             pend = dispatch_chunks(
-                shortlist_rescore_rows(batch, top_idx), rank_step)
-        return (batch, ids, gt_id, cand_valid, top_idx, K, pend)
+                shortlist_rescore_rows(batch, top_idx), bi, rank_step)
+        return (bi, batch, ids, gt_id, cand_valid, top_idx, K, pend)
 
     def _topk_finish(st):
-        batch, ids, gt_id, cand_valid, top_idx, K, pend = st
-        nsp_probs, reg_out, reg5, regl1 = collect_chunks(pend)
+        bi, batch, ids, gt_id, cand_valid, top_idx, K, pend = st
+        nsp_probs, reg_out, reg5, regl1 = collect_chunks(pend, bi)
         B = top_idx.shape[0]
         probs = np.where(
             np.take_along_axis(cand_valid, top_idx, axis=1),
@@ -638,12 +654,12 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
                 top_idx, best_k[:, None], axis=1)[:, 0]
         sel = np.arange(B) * K + best_k
         nonempty = np.isfinite(probs).any(axis=1)
-        return batch, (answers_idx,
-                       (answers_idx == gt_id) & nonempty,
-                       np.where(nonempty, reg5[sel], np.inf),
-                       np.where(nonempty, regl1[sel], np.inf),
-                       np.where(nonempty, reg_out[sel], np.nan),
-                       probs[np.arange(B), best_k])
+        return bi, batch, (answers_idx,
+                           (answers_idx == gt_id) & nonempty,
+                           np.where(nonempty, reg5[sel], np.inf),
+                           np.where(nonempty, regl1[sel], np.inf),
+                           np.where(nonempty, reg_out[sel], np.nan),
+                           probs[np.arange(B), best_k])
 
     def _topk_batches():
         """Shortlist-then-rescore, pipelined one batch deep: while the card
@@ -651,32 +667,33 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
         batch k+1 (its chunks queue behind the rescore), and batch k's
         outputs come back only after that."""
         inflight = None
-        for batch in dataloader:
+        for bi, batch in enumerate(dataloader):
             ids = np.asarray(batch["id"]).reshape(-1)
             if ids.shape[0] == 0:
                 continue
             gt_id = np.asarray(batch["gt_id"]).reshape(-1)
-            frows = build_fast_rows(batch)
+            with tracing.span("eval.flatten", trace=bi):
+                frows = build_fast_rows(batch)
             if dedup:
-                vis = put_vis(batch)
+                vis = put_vis(batch, bi)
                 ftext = {k: v for k, v in frows.items()
                          if k not in EVAL_VIS_KEYS}
                 fpend = dispatch_chunks(
-                    ftext, chunk_size=qchunk, vis=vis,
+                    ftext, bi, chunk_size=qchunk, vis=vis,
                     qidx=np.arange(len(ids), dtype=np.int64))
                 frows["_vis"] = vis
             else:
-                fpend = dispatch_chunks(frows, chunk_size=qchunk)
+                fpend = dispatch_chunks(frows, bi, chunk_size=qchunk)
             if inflight is not None:
                 yield _topk_finish(inflight)
-            frows["_cand_logits"] = collect_chunks(fpend)[0]
-            inflight = _topk_stage2(batch, ids, gt_id, frows)
+            frows["_cand_logits"] = collect_chunks(fpend, bi)[0]
+            inflight = _topk_stage2(bi, batch, ids, gt_id, frows)
         if inflight is not None:
             yield _topk_finish(inflight)
 
     def _rank_finish(st):
-        batch, offsets, pend = st
-        return batch, (collect_chunks(pend), offsets)
+        bi, batch, offsets, pend = st
+        return bi, batch, (collect_chunks(pend, bi), offsets)
 
     def _rank_batches():
         """Full reference protocol, pipelined one batch deep (the structure
@@ -685,7 +702,7 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
         flatten / transfer / accounting. Zero-candidate batches launch
         nothing and flush the pipeline to keep the batch order."""
         inflight = None
-        for batch in dataloader:
+        for bi, batch in enumerate(dataloader):
             ids = np.asarray(batch["id"]).reshape(-1)
             if ids.shape[0] == 0:
                 continue
@@ -693,21 +710,25 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
                 if inflight is not None:
                     yield _rank_finish(inflight)
                     inflight = None
-                yield batch, None        # poisoned outputs, no dispatch
+                yield bi, batch, None    # poisoned outputs, no dispatch
                 continue
+            with tracing.span("eval.flatten", trace=bi):
+                if dedup:
+                    rows, offsets = _flatten_valid_rows(
+                        batch, keys=EVAL_TEXT_KEYS)
+                    qidx = np.repeat(
+                        np.arange(len(ids), dtype=np.int64),
+                        np.diff(offsets).astype(np.int64))
+                else:
+                    rows, offsets = _flatten_valid_rows(batch)
             if dedup:
-                rows, offsets = _flatten_valid_rows(batch,
-                                                    keys=EVAL_TEXT_KEYS)
-                qidx = np.repeat(
-                    np.arange(len(ids), dtype=np.int64),
-                    np.diff(offsets).astype(np.int64))
-                pend = dispatch_chunks(rows, vis=put_vis(batch), qidx=qidx)
+                pend = dispatch_chunks(rows, bi, vis=put_vis(batch, bi),
+                                       qidx=qidx)
             else:
-                rows, offsets = _flatten_valid_rows(batch)
-                pend = dispatch_chunks(rows)
+                pend = dispatch_chunks(rows, bi)
             if inflight is not None:
                 yield _rank_finish(inflight)
-            inflight = (batch, offsets, pend)
+            inflight = (bi, batch, offsets, pend)
         if inflight is not None:
             yield _rank_finish(inflight)
 
@@ -716,164 +737,176 @@ def _evaluate(dataloader, dataset, params, model, eval_batch_size, progress,
     elif not fast and not binary:
         batch_iter = _rank_batches()
     else:
-        batch_iter = ((b, None) for b in dataloader)
+        batch_iter = ((bi, b, None) for bi, b in enumerate(dataloader))
 
-    for batch, _topk_pre in batch_iter:
+    for bi, batch, pre in batch_iter:
         ids = np.asarray(batch["id"]).reshape(-1)
         if ids.shape[0] == 0:
             continue
-        needs_reg = np.asarray(batch["needs_reg"]).reshape(len(ids), -1)[:, 0]
-        needs_reg = needs_reg.astype(bool)
-        gt_id = np.asarray(batch["gt_id"]).reshape(-1)
-
-        if fast and topk:
-            (answers_idx, nsp_right, ans_reg5, ans_regl1, ans_reg_out,
-             ans_prob) = _topk_pre
-        elif fast:
+        if fast and not topk:
             # one backbone pass per question + light candidate head; the
             # regression outputs come from the same answer-masked pass
-            frows = build_fast_rows(batch)
+            with tracing.span("eval.flatten", trace=bi):
+                frows = build_fast_rows(batch)
             if dedup:
                 ftext = {k: v for k, v in frows.items()
                          if k not in EVAL_VIS_KEYS}
-                cand_logits, ans_reg_out, ans_reg5, ans_regl1 = run_chunks(
-                    ftext, chunk_size=qchunk, vis=put_vis(batch),
-                    qidx=np.arange(len(ids), dtype=np.int64))
+                pre = run_chunks(ftext, bi, chunk_size=qchunk,
+                                 vis=put_vis(batch, bi),
+                                 qidx=np.arange(len(ids), dtype=np.int64))
             else:
-                cand_logits, ans_reg_out, ans_reg5, ans_regl1 = run_chunks(
-                    frows, chunk_size=qchunk)
-            if regs_mode:
-                answers_idx = gt_id.astype(np.int64)
-            else:
-                answers_idx = np.argmax(cand_logits, axis=-1)
-            nsp_right = answers_idx == gt_id
-            masked = np.where(frows["cand_valid"] > 0, cand_logits, -np.inf)
-            masked = masked - masked.max(axis=1, keepdims=True)
-            e = np.exp(masked)
-            with np.errstate(invalid="ignore"):
-                smax = e / np.maximum(e.sum(axis=1, keepdims=True), 1e-30)
-            ans_prob = smax[np.arange(len(ids)), answers_idx]
+                pre = run_chunks(frows, bi, chunk_size=qchunk)
         elif binary:
-            rows = {k: np.asarray(batch[k]) for k in ROW_KEYS if k in batch}
-            nsp_probs, reg_out, reg5, regl1 = run_chunks(rows)
-            answers = np.round(nsp_probs).astype(np.int64)
-            labels = np.asarray(batch["next_sentence_labels"]).reshape(-1)
-            nsp_right = answers == (1 - labels)
-            ans_reg5 = np.zeros(len(ids))
-            ans_regl1 = np.zeros(len(ids))
-            ans_reg_out = np.zeros(len(ids))
-            answers_idx = answers
-            ans_prob = np.where(answers == 1, nsp_probs, 1.0 - nsp_probs)
-        elif _topk_pre is None:
-            # every question in this loader batch has zero valid candidates
-            # (_rank_batches launched nothing): the poisoned outputs of the
-            # `nonempty` masking below
-            answers_idx = (gt_id.astype(np.int64) if regs_mode
-                           else np.zeros(len(ids), np.int64))
-            nsp_right = np.zeros(len(ids), bool)
-            ans_reg5 = np.full(len(ids), np.inf)
-            ans_regl1 = np.full(len(ids), np.inf)
-            ans_reg_out = np.full(len(ids), np.nan)
-            ans_prob = np.full(len(ids), np.nan)
-        else:
-            # the pipelined rank path: outputs already collected
-            (nsp_probs, reg_out, reg5, regl1), offsets = _topk_pre
-            # per-question (segmented) argmax over candidate NSP probs,
-            # first-max tie-breaking (evaluation.py:287-296)
-            starts = offsets[:-1].astype(np.int64)
-            if regs_mode:
-                answers_idx = gt_id.astype(np.int64)
-            else:
-                answers_idx = segmented_argmax(nsp_probs, offsets)
-            sel = np.minimum(starts + answers_idx, max(len(nsp_probs) - 1, 0))
-            # a question with zero valid candidates can never be right, and
-            # its `sel` row belongs to another question: poison its
-            # regression outputs so the reg-accuracy counters skip it too
-            nonempty = np.diff(offsets) > 0
-            ans_reg5 = np.where(nonempty, reg5[sel], np.inf)
-            ans_regl1 = np.where(nonempty, regl1[sel], np.inf)
-            ans_reg_out = np.where(nonempty, reg_out[sel], np.nan)
-            nsp_right = (answers_idx == gt_id) & nonempty
-            ans_prob = np.where(nonempty, nsp_probs[sel], np.nan)
-        inf_time[1] += len(ids)
+            pre = run_chunks({k: np.asarray(batch[k]) for k in ROW_KEYS
+                              if k in batch}, bi)
+        with tracing.span("eval.account", trace=bi):
+            needs_reg = np.asarray(batch["needs_reg"]).reshape(
+                len(ids), -1)[:, 0]
+            needs_reg = needs_reg.astype(bool)
+            gt_id = np.asarray(batch["gt_id"]).reshape(-1)
 
-        tol = np.asarray(batch["tolerance_margin"]).reshape(len(ids), -1)[:, 0]
-        reg_right = (ans_reg5 <= 0.05) & needs_reg
-        reg_t_right = (ans_regl1 <= tol) & needs_reg
-        correct = nsp_right & (~needs_reg | reg_right)
-        t_correct = nsp_right & (~needs_reg | reg_t_right)
-
-        if on_predictions is not None and dataset is not None:
-            # batch answer serving: one record per question, the demo bot's
-            # pred dict (reference Interactive_demo.py:161-247)
-            recs = []
-            for i in range(len(ids)):
-                raw = dataset.get_raw(int(ids[i]))
-                rec = {"question_id": int(ids[i]),
-                       "image_index": int(raw["image_index"]),
-                       "question": str(raw.get("question_string", "")),
-                       "is_reg": bool(needs_reg[i]),
-                       "confidence": (float(ans_prob[i])
-                                      if np.isfinite(ans_prob[i]) else None)}
-                if binary:
-                    rec["answer"] = rec["cls_output"] = int(answers_idx[i])
+            if fast and topk:
+                (answers_idx, nsp_right, ans_reg5, ans_regl1, ans_reg_out,
+                 ans_prob) = pre
+            elif fast:
+                cand_logits, ans_reg_out, ans_reg5, ans_regl1 = pre
+                if regs_mode:
+                    answers_idx = gt_id.astype(np.int64)
                 else:
-                    opts = dataset.get_possible_answers(raw["image_index"])
-                    ci = int(answers_idx[i])
-                    rec["cls_output"] = (str(opts[ci])
-                                         if 0 <= ci < len(opts) else None)
-                    if needs_reg[i]:
-                        rec["reg_output"] = (float(ans_reg_out[i])
-                                             if np.isfinite(ans_reg_out[i])
-                                             else None)
-                        rec["answer"] = rec["reg_output"]
+                    answers_idx = np.argmax(cand_logits, axis=-1)
+                nsp_right = answers_idx == gt_id
+                masked = np.where(frows["cand_valid"] > 0, cand_logits,
+                                  -np.inf)
+                masked = masked - masked.max(axis=1, keepdims=True)
+                e = np.exp(masked)
+                with np.errstate(invalid="ignore"):
+                    smax = e / np.maximum(e.sum(axis=1, keepdims=True), 1e-30)
+                ans_prob = smax[np.arange(len(ids)), answers_idx]
+            elif binary:
+                nsp_probs, reg_out, reg5, regl1 = pre
+                answers = np.round(nsp_probs).astype(np.int64)
+                labels = np.asarray(batch["next_sentence_labels"]).reshape(-1)
+                nsp_right = answers == (1 - labels)
+                ans_reg5 = np.zeros(len(ids))
+                ans_regl1 = np.zeros(len(ids))
+                ans_reg_out = np.zeros(len(ids))
+                answers_idx = answers
+                ans_prob = np.where(answers == 1, nsp_probs, 1.0 - nsp_probs)
+            elif pre is None:
+                # every question in this loader batch has zero valid candidates
+                # (_rank_batches launched nothing): the poisoned outputs of the
+                # `nonempty` masking below
+                answers_idx = (gt_id.astype(np.int64) if regs_mode
+                               else np.zeros(len(ids), np.int64))
+                nsp_right = np.zeros(len(ids), bool)
+                ans_reg5 = np.full(len(ids), np.inf)
+                ans_regl1 = np.full(len(ids), np.inf)
+                ans_reg_out = np.full(len(ids), np.nan)
+                ans_prob = np.full(len(ids), np.nan)
+            else:
+                # the pipelined rank path: outputs already collected
+                (nsp_probs, reg_out, reg5, regl1), offsets = pre
+                # per-question (segmented) argmax over candidate NSP probs,
+                # first-max tie-breaking (evaluation.py:287-296)
+                starts = offsets[:-1].astype(np.int64)
+                if regs_mode:
+                    answers_idx = gt_id.astype(np.int64)
+                else:
+                    answers_idx = segmented_argmax(nsp_probs, offsets)
+                sel = np.minimum(starts + answers_idx,
+                                 max(len(nsp_probs) - 1, 0))
+                # a question with zero valid candidates can never be right, and
+                # its `sel` row belongs to another question: poison its
+                # regression outputs so the reg-accuracy counters skip it too
+                nonempty = np.diff(offsets) > 0
+                ans_reg5 = np.where(nonempty, reg5[sel], np.inf)
+                ans_regl1 = np.where(nonempty, regl1[sel], np.inf)
+                ans_reg_out = np.where(nonempty, reg_out[sel], np.nan)
+                nsp_right = (answers_idx == gt_id) & nonempty
+                ans_prob = np.where(nonempty, nsp_probs[sel], np.nan)
+            inf_time[1] += len(ids)
+
+            tol = np.asarray(batch["tolerance_margin"]).reshape(
+                len(ids), -1)[:, 0]
+            reg_right = (ans_reg5 <= 0.05) & needs_reg
+            reg_t_right = (ans_regl1 <= tol) & needs_reg
+            correct = nsp_right & (~needs_reg | reg_right)
+            t_correct = nsp_right & (~needs_reg | reg_t_right)
+
+            if on_predictions is not None and dataset is not None:
+                # batch answer serving: one record per question, the demo bot's
+                # pred dict (reference Interactive_demo.py:161-247)
+                recs = []
+                for i in range(len(ids)):
+                    raw = dataset.get_raw(int(ids[i]))
+                    rec = {"question_id": int(ids[i]),
+                           "image_index": int(raw["image_index"]),
+                           "question": str(raw.get("question_string", "")),
+                           "is_reg": bool(needs_reg[i]),
+                           "confidence": (float(ans_prob[i])
+                                          if np.isfinite(ans_prob[i])
+                                          else None)}
+                    if binary:
+                        rec["answer"] = rec["cls_output"] = int(answers_idx[i])
                     else:
-                        rec["answer"] = rec["cls_output"]
-                if raw.get("answer") is not None:
-                    a = raw["answer"]
-                    rec["gt_answer"] = (a.item() if hasattr(a, "item")
-                                        else a)
-                recs.append(rec)
-            on_predictions(recs)
+                        opts = dataset.get_possible_answers(raw["image_index"])
+                        ci = int(answers_idx[i])
+                        rec["cls_output"] = (str(opts[ci])
+                                             if 0 <= ci < len(opts) else None)
+                        if needs_reg[i]:
+                            rec["reg_output"] = (float(ans_reg_out[i])
+                                                 if np.isfinite(ans_reg_out[i])
+                                                 else None)
+                            rec["answer"] = rec["reg_output"]
+                        else:
+                            rec["answer"] = rec["cls_output"]
+                    if raw.get("answer") is not None:
+                        a = raw["answer"]
+                        rec["gt_answer"] = (a.item() if hasattr(a, "item")
+                                            else a)
+                    recs.append(rec)
+                on_predictions(recs)
 
-        if logger is not None:
-            gt = np.asarray(batch["gt"]).reshape(len(ids), -1)[:, 0]
-            reg_target = np.asarray(batch["reg_target"]).reshape(len(ids), -1)[:, 0]
-            data = np.stack([ids, gt_id, answers_idx, gt, ans_reg_out,
-                             reg_target, ans_reg5, ans_regl1], axis=1).astype(object)
-            data[~needs_reg, 3:] = np.nan
-            logger.append(data)
+            if logger is not None:
+                gt = np.asarray(batch["gt"]).reshape(len(ids), -1)[:, 0]
+                reg_target = np.asarray(batch["reg_target"]).reshape(
+                    len(ids), -1)[:, 0]
+                data = np.stack([ids, gt_id, answers_idx, gt, ans_reg_out,
+                                 reg_target, ans_reg5, ans_regl1],
+                                axis=1).astype(object)
+                data[~needs_reg, 3:] = np.nan
+                logger.append(data)
 
-        total_correct = reduce_total_acc(
-            total_correct, needs_reg, nsp_right, reg_right, reg_t_right)
-        if 'plotqa' in params.get('dataset', ''):
-            breakdown = reduce_breakdown(breakdown, dataset, batch, correct,
-                                         t_correct, needs_reg)
-            histogram = reduce_histogram(histogram, ans_reg5[needs_reg])
-        if logger is not None:
-            # snapshots for EVERY dataset: resume reloads them
-            logger.save_tensors(breakdown, total_correct, histogram)
-        if progress:
-            print_acc_table(log_print, total_correct)
+            total_correct = reduce_total_acc(
+                total_correct, needs_reg, nsp_right, reg_right, reg_t_right)
             if 'plotqa' in params.get('dataset', ''):
-                print_breakdown_table(params, log_print, breakdown)
-            if progress == "examples" and dataset is not None:
-                # right-regression and wrong-classification samples
-                # (reference evaluation.py:360-382)
-                for i in np.nonzero(nsp_right & needs_reg & reg_right)[0]:
-                    raw = dataset.get_raw(int(ids[i]))
-                    log_print("{} [I{}] Q:{} output: {} || {} || loss: {}"
-                              .format(int(ids[i]), raw['image_index'],
-                                      raw['question_string'],
-                                      ans_reg_out[i], raw['answer'],
-                                      ans_reg5[i]))
-                for i in np.nonzero(nsp_right & ~needs_reg)[0]:
-                    raw = dataset.get_raw(int(ids[i]))
-                    opts = dataset.get_possible_answers(raw['image_index'])
-                    log_print("*{} <I{}> Q: {} . A: {} || {}".format(
-                        int(ids[i]), raw['image_index'],
-                        raw['question_string'],
-                        opts[int(answers_idx[i])], raw['answer']))
+                breakdown = reduce_breakdown(breakdown, dataset, batch,
+                                             correct, t_correct, needs_reg)
+                histogram = reduce_histogram(histogram, ans_reg5[needs_reg])
+            if logger is not None:
+                # snapshots for EVERY dataset: resume reloads them
+                logger.save_tensors(breakdown, total_correct, histogram)
+            if progress:
+                print_acc_table(log_print, total_correct)
+                if 'plotqa' in params.get('dataset', ''):
+                    print_breakdown_table(params, log_print, breakdown)
+                if progress == "examples" and dataset is not None:
+                    # right-regression and wrong-classification samples
+                    # (reference evaluation.py:360-382)
+                    for i in np.nonzero(nsp_right & needs_reg & reg_right)[0]:
+                        raw = dataset.get_raw(int(ids[i]))
+                        log_print("{} [I{}] Q:{} output: {} || {} || loss: {}"
+                                  .format(int(ids[i]), raw['image_index'],
+                                          raw['question_string'],
+                                          ans_reg_out[i], raw['answer'],
+                                          ans_reg5[i]))
+                    for i in np.nonzero(nsp_right & ~needs_reg)[0]:
+                        raw = dataset.get_raw(int(ids[i]))
+                        opts = dataset.get_possible_answers(raw['image_index'])
+                        log_print("*{} <I{}> Q: {} . A: {} || {}".format(
+                            int(ids[i]), raw['image_index'],
+                            raw['question_string'],
+                            opts[int(answers_idx[i])], raw['answer']))
 
     if inf_time[1]:
         log_print(f"Avg inference time: {inf_time[0] / inf_time[1]:.4f}s "

@@ -20,6 +20,8 @@ rank; rank 0 alone logs, writes TensorBoard and saves checkpoints.
 from __future__ import annotations
 
 import glob
+import itertools
+import json
 import os
 import signal
 import time
@@ -34,6 +36,7 @@ import torch
 from crct_tpu_torch import parallel
 from crct_tpu_torch.models.crct import CRCTModel, build_model
 from crct_tpu_torch.train.optimizer import AdamW, current_lr
+from crct_tpu_torch.utils import tracing
 from crct_tpu_torch.utils.checkpoint import (checkpoint_name, epoch_from_name,
                                              epoch_iter_from_name,
                                              load_checkpoint,
@@ -67,31 +70,39 @@ def make_train_step(model: CRCTModel, optimizer: AdamW
     the process group and the optimizer step (an update every
     ``optimizer.every_k``-th call). The metrics are the global batch's."""
     params = list(model.parameters())
+    calls = itertools.count()
 
     def train_step(batch, generator):
-        model.train()
-        for p in model.parameters():
-            p.grad = None
-        out = model(batch, generator)
-        out.loss.backward()
-        parallel.allreduce_gradients(params)
-        optimizer.step()
-        with torch.no_grad():
-            zero = torch.zeros((), device=out.loss.device)
-            # 9-slot metric vector (reference train.py:181-191):
-            # [loss, lm_loss, nsp_loss, reg_loss, reg_5_dist, legend_loss,
-            #  num_regs, reg_5_right, reg_t_right], summed over the world;
-            # the losses are means over equal local batches and the
-            # regression means divide by the global num_regs
-            m = parallel.allreduce_sum(torch.stack([
-                out.loss.detach(), zero, out.nsp_loss.detach(),
-                out.reg_loss.sum(), out.reg_5_dist.sum(), zero,
-                out.needs_reg.sum().float(), out.correct_regs.sum().float(),
-                out.correct_t_regs.sum().float()]))
-            world = parallel.world_size()
-            denom = m[6].clamp(min=1.0)
-            return torch.stack([m[0] / world, m[1], m[2] / world,
-                                m[3] / denom, m[4] / denom, *m[5:]])
+        with tracing.span("train.step", trace=next(calls)):
+            model.train()
+            for p in model.parameters():
+                p.grad = None
+            with tracing.span("train.forward"):
+                out = model(batch, generator)
+            with tracing.span("train.backward"):
+                out.loss.backward()
+            with tracing.span("train.allreduce"):
+                parallel.allreduce_gradients(params)
+            with tracing.span("train.optimizer"):
+                optimizer.step()
+            with tracing.span("train.metrics"), torch.no_grad():
+                zero = torch.zeros((), device=out.loss.device)
+                # 9-slot metric vector (reference train.py:181-191):
+                # [loss, lm_loss, nsp_loss, reg_loss, reg_5_dist,
+                #  legend_loss, num_regs, reg_5_right, reg_t_right],
+                # summed over the world; the losses are means over equal
+                # local batches and the regression means divide by the
+                # global num_regs
+                m = parallel.allreduce_sum(torch.stack([
+                    out.loss.detach(), zero, out.nsp_loss.detach(),
+                    out.reg_loss.sum(), out.reg_5_dist.sum(), zero,
+                    out.needs_reg.sum().float(),
+                    out.correct_regs.sum().float(),
+                    out.correct_t_regs.sum().float()]))
+                world = parallel.world_size()
+                denom = m[6].clamp(min=1.0)
+                return torch.stack([m[0] / world, m[1], m[2] / world,
+                                    m[3] / denom, m[4] / denom, *m[5:]])
 
     return train_step
 
@@ -244,10 +255,8 @@ def _run_epochs(params_dict, trainer, loader, dataset, eval_fn,
                 profiler = _start_profiler(trainer.device)
             device_metrics = trainer.run_step(batch)
             if profiler is not None and trainer.step == 15:
-                profiler.stop()
-                os.makedirs(profile_dir, exist_ok=True)
-                profiler.export_chrome_trace(
-                    os.path.join(profile_dir, "train_steps_10_15.json"))
+                _stop_profiler(profiler, os.path.join(
+                    profile_dir, "train_steps_10_15.json"))
                 profiler = None
                 log_line(params_dict, f"profiler trace saved to {profile_dir}")
             # read at the same steps on every rank (the writer is rank 0's
@@ -316,13 +325,31 @@ def _run_epochs(params_dict, trainer, loader, dataset, eval_fn,
 
 
 def _start_profiler(device: torch.device):
+    """torch.profiler over the card's activity (the host's on the CPU),
+    with the tracer on: recording every host operation as well doubles
+    the host's step, and the program's spans say what the host was in."""
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    profiler = profile(activities=activities)
+    profiler = profile(activities=[ProfilerActivity.CUDA
+                                   if device.type == "cuda"
+                                   else ProfilerActivity.CPU])
     profiler.start()
+    tracing.enable()
     return profiler
+
+
+def _stop_profiler(profiler, path: str) -> None:
+    """Stop the profiler and the tracer and write the profiler's chrome
+    trace to ``path`` with the program's spans in it, on its clock."""
+    tracing.disable()
+    profiler.stop()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    profiler.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"].extend(tracing.chrome_events(
+        tracing.drain()["spans"], int(trace.get("baseTimeNanoseconds", 0))))
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def _preempt_save(params_dict, trainer: Trainer, epoch_id: int) -> None:

@@ -1037,3 +1037,44 @@ def test_retrieval_recipe_through_the_kernels_as_through_the_plain_attention(
           f"{want[-50:].mean():.5f}")
     assert launched > 0 and plain_launched == 0
     assert gap[:40].max() <= 2e-3, gap[:40]
+
+
+def test_a_span_holds_its_launch_on_the_profilers_clock_on_card(card,
+                                                                tmp_path):
+    """The tracer's spans around launches of a sleep kernel hold each
+    launch's ``cudaLaunchKernel`` record of the profiler's trace (CUDA
+    activity only), on the trace's clock; by the tightest of ten, the two
+    clocks lie within 20 us of each other (the larger of the room before
+    and after the call). The bound read is printed."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+
+    from crct_tpu_torch.utils import tracing
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                with tracing.span("probe"):
+                    torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    spans = tracing.drain()["spans"]
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    launches = sorted((e for e in trace["traceEvents"]
+                       if e.get("name") == "cudaLaunchKernel"),
+                      key=lambda e: e["ts"])
+    assert len(launches) == len(spans) == 10
+    events = tracing.chrome_events(spans, int(trace["baseTimeNanoseconds"]))
+    slack = []
+    for ev, sp in zip(launches, events):
+        before = ev["ts"] - sp["ts"]
+        after = sp["ts"] + sp["dur"] - (ev["ts"] + ev["dur"])
+        assert before >= 0 and after >= 0, (before, after)
+        slack.append(max(before, after))
+    print(f"clock alignment on {torch.cuda.get_device_name(card)}: within "
+          f"{min(slack):.2f} us (each: {[round(s, 2) for s in slack]})")
+    assert min(slack) < 20.0, slack

@@ -660,8 +660,18 @@ def test_run_training_profiles_logs_and_stops_on_sigterm(data_env, tmp_path,
     trainer = run_training(params, ChartQADataset(params, ["train"]),
                            device="cpu")
     assert trainer.step == 19
-    assert os.path.isfile(tmp_path / "out" / "profile" /
-                          "train_steps_10_15.json")
+    with open(tmp_path / "out" / "profile" / "train_steps_10_15.json") as f:
+        events = json.load(f)["traceEvents"]
+    # the program's spans of steps 10-15 beside the profiler's records, on
+    # its clock: the forward's operators inside the forward's spans
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    steps = [e for e in spans if e["name"] == "train.step"]
+    assert [e["args"]["trace"] for e in steps] == [10, 11, 12, 13, 14]
+    forwards = [e for e in spans if e["name"] == "train.forward"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e.get("name") == "aten::layer_norm"]
+    assert ops and all(any(f["ts"] <= e["ts"] <= f["ts"] + f["dur"]
+                           for f in forwards) for e in ops)
     assert glob.glob(str(tmp_path / "tb" / "run" / "events.*"))
     saved = ckpt.checkpoint_name(1, 19)
     assert os.path.isfile(tmp_path / "out" / saved)
